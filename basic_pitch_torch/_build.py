@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``basic_pitch_torch/build/`` (listed in ``.gitignore``), then
-loaded with ctypes. The library name carries a hash of the source and the
-flags, so an edited source is rebuilt and concurrent builders never see a
-half-written file. Nothing here runs at import time.
+loaded with ctypes. The library name carries a hash of the source, of every
+``csrc/`` header it includes (``#include "..."``, followed recursively) and
+of the flags, so an edited source or header is rebuilt and concurrent
+builders never see a half-written file. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -49,11 +51,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[pathlib.Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` files it includes, recursively."""
+    found: List[pathlib.Path] = []
+    pending = [CSRC_DIR / f"{name}.cu"]
+    while pending:
+        path = pending.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            pending.append(path.parent / inc.decode())
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
     """Where the built library for ``csrc/<name>.cu`` lives."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:

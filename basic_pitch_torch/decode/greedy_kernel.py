@@ -7,6 +7,29 @@ preprocess, onset peak picking and candidate ordering (shared with
 overflow into the result. A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernel or raises — there is no fallback and no
 frame-count gate. `launches` counts kernel launches.
+
+The kernel is one block of 32 warps per recording. Each warp walks one
+note at a time, warp-synchronously (no block barrier inside a note); a
+batch of up to 32 onset candidates, or of melodia seeds in rows at least 3
+apart, is walked at once and committed in the reference order, so the
+result equals `decode_plain` exactly (amplitudes within 2e-6).
+
+Shared memory, as a function of the logical frame count t_end: nb =
+ceil(t_end / 128) level-0 table entries per row (frames past t_end are
+zero and can never seed melodia; with a negative frame_thresh they can,
+and nb = ceil(T / 128)) and ng = ceil(nb / G) level-1 groups per row, G
+the smallest power of two >= 32 with ng <= 32. Level 1 takes 88 * ng * 8
+bytes (at most 22.5 KB) of dynamic shared memory; level 0, 88 * nb * 8
+bytes, joins it when both fit in 216 KB (t_end up to about 36 000 frames)
+and otherwise lives in the global `(88, nb)` buffers allocated here.
+Another ~4 KB is static. No T the wrapper accepts is refused for shared
+memory. `greedy_stages` relies on `device.greedy_inputs` having zeroed the
+frames past t_end.
+
+`meta` (returned by `greedy_stages`): [0] notes kept (also past
+max_notes), [1] in-kernel overflow, [2] melodia iterations, [3] re-walks:
+onset candidates walked again and melodia seeds dropped because an earlier
+note of their batch changed what they read.
 """
 
 from __future__ import annotations
@@ -20,7 +43,7 @@ from basic_pitch_torch.decode import device as device_decode
 from basic_pitch_torch.decode import notes as host_decode
 
 F = device_decode.F
-TABLE_BLOCK = 1024  # frames per block-table entry (TBLOCK in the source)
+TABLE_BLOCK = 128  # frames per level-0 table entry (TB in the source)
 MAX_INT32 = 2**31 - 1
 
 # kernel launches made by `decode_greedy` in this process
@@ -57,9 +80,10 @@ def greedy_stages(
     max_notes: int,
     max_melodia_iters: int,
     melodia_trick: bool,
-) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]":
     """Launch the kernel on the current stream. Returns (packed (max_notes,
-    4) int32, n_notes () int32, overflow () bool) without synchronising."""
+    4) int32, n_notes () int32, overflow () bool, meta (4,) int32 counters)
+    without synchronising."""
     global launches
     frames_ft = inputs.frames_ft
     T = frames_ft.shape[1]
@@ -68,7 +92,8 @@ def greedy_stages(
     _check("order", inputs.order, torch.int32, (k,))
     _check("n_onsets", inputs.n_onsets, torch.int32, ())
     dev = frames_ft.device
-    for name, value in (("T * 88", T * F), ("max_notes", max_notes), ("max_melodia_iters", max_melodia_iters)):
+    # the kernel's flat indices run up to a walk step (512 frames) past the last frame
+    for name, value in (("T * 88 + 512", T * F + 512), ("max_notes", max_notes), ("max_melodia_iters", max_melodia_iters)):
         if not 0 < value <= MAX_INT32:
             raise ValueError(f"{name} = {value} is outside what the kernel takes (1 .. 2**31 - 1)")
     if not 0 < inputs.t_end <= T:
@@ -98,7 +123,7 @@ def greedy_stages(
     launches += 1
     n_notes = torch.clamp(meta[0], max=max_notes)
     overflow = (meta[1] > 0) | (meta[0] > max_notes)
-    return notes, n_notes, overflow
+    return notes, n_notes, overflow, meta
 
 
 def decode_greedy(
@@ -131,7 +156,7 @@ def decode_greedy(
     inputs = device_decode.greedy_inputs(
         frames, onsets, onset_thresh, freq_mask, infer_onsets, max_notes, valid_frames
     )
-    notes, n_notes, overflow = greedy_stages(
+    notes, n_notes, overflow, _ = greedy_stages(
         inputs, frame_thresh, min_note_len, energy_tol, max_notes, max_melodia_iters, melodia_trick
     )
     return device_decode.unpack(notes, n_notes, overflow | inputs.onset_overflow)

@@ -10,14 +10,19 @@ Phases, each fatal on failure:
   1. the card's name and power limit, torch/CUDA versions, and the build of
      every hand-written kernel from csrc/ (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the card: seeded fuzz
-     cases, the main path's own decode inputs (T = 18 176 frames,
-     max_notes 16 384, melodia on), timed at that shape, and a dense seeded
-     case at the same shape;
+     cases, adversarial cases for the kernel's batched commit
+     (tests/torch_decode_cases.py, with its re-walk counter), the main path's own decode inputs (T = 18 176
+     frames, max_notes 16 384, melodia on), timed at that shape, a dense
+     seeded roll and an 8-voice tone mix at the same shape, and one hour of
+     sparse frames (T = 310 000); for each, the kernel's time with melodia
+     off and on and its counters (candidates, notes, melodia iterations,
+     re-walks);
   3. the main path at full width: StreamingTranscriber(device="cuda",
      windows_per_chunk=128) with the shipped weights transcribes ~60 s
      recordings (22.05 kHz float32, 44.1 kHz int16, and a batch of 4); the
      kernel must launch once per recording, the host fallback must never
-     fire, and the synthesised notes must come back;
+     fire, and the synthesised notes must come back; then the 8-voice tone
+     mix, and where one recording's wall goes for it and a sparse one;
   4. posteriorgrams on the card against the port on the CPU within 1e-4 on
      the tests' golden audio, which shows that TF32 is off (a run with TF32
      on is printed beside it as the control);
@@ -45,24 +50,28 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same sheet)
 
 
-def tone_mix(sr: int, seconds: float, seed: int, noise: float = 0.01) -> Tuple[np.ndarray, List[Tuple[float, int]]]:
-    """Seeded polyphonic mix of harmonic tones over a noise floor. Returns
+def tone_mix(sr: int, seconds: float, seed: int, noise: float = 0.01, voices: int = 1) -> Tuple[np.ndarray, List[Tuple[float, int]]]:
+    """Seeded polyphonic mix of harmonic tones over a noise floor: `voices`
+    independent streams of notes (each note 0.5-1.2 s, a new one every
+    0.35-0.7 s), so about 1.5 x voices notes sound at once. Returns
     (float32 audio, list of (onset seconds, MIDI pitch))."""
     rng = np.random.RandomState(seed)
     n = int(seconds * sr)
     y = noise * rng.randn(n)
     notes = []
-    t_start = 0.3
-    while t_start < seconds - 1.0:
-        midi = int(rng.randint(45, 82))
-        dur = float(rng.uniform(0.5, 1.2))
-        f0 = 440.0 * 2 ** ((midi - 69) / 12)
-        i0, i1 = int(t_start * sr), min(n, int((t_start + dur) * sr))
-        tt = np.arange(i1 - i0) / sr
-        env = np.exp(-1.5 * tt) * np.minimum(1.0, tt / 0.005)
-        y[i0:i1] += 0.25 * env * (np.sin(2 * np.pi * f0 * tt) + 0.4 * np.sin(4 * np.pi * f0 * tt))
-        notes.append((t_start, midi))
-        t_start += float(rng.uniform(0.35, 0.7))
+    gain = 0.25 / voices ** 0.5
+    for _ in range(voices):
+        t_start = 0.3 + (float(rng.uniform(0.0, 0.35)) if voices > 1 else 0.0)
+        while t_start < seconds - 1.0:
+            midi = int(rng.randint(45, 82))
+            dur = float(rng.uniform(0.5, 1.2))
+            f0 = 440.0 * 2 ** ((midi - 69) / 12)
+            i0, i1 = int(t_start * sr), min(n, int((t_start + dur) * sr))
+            tt = np.arange(i1 - i0) / sr
+            env = np.exp(-1.5 * tt) * np.minimum(1.0, tt / 0.005)
+            y[i0:i1] += gain * env * (np.sin(2 * np.pi * f0 * tt) + 0.4 * np.sin(4 * np.pi * f0 * tt))
+            notes.append((t_start, midi))
+            t_start += float(rng.uniform(0.35, 0.7))
     return y.astype(np.float32), notes
 
 
@@ -78,6 +87,22 @@ def piano_roll(n_frames: int, n_notes: int, seed: int) -> Tuple[np.ndarray, np.n
         level = rng.uniform(0.4, 0.9) * (1 + 0.1 * rng.randn(length)).clip(0.5, 1.1)
         frames[s : s + length, p] = np.maximum(frames[s : s + length, p], level)
         onsets[s - 1 : s + 2, p] = np.maximum(onsets[s - 1 : s + 2, p], [0.3, rng.uniform(0.6, 0.95), 0.3])
+    return frames, onsets
+
+
+def sparse_roll(n_frames: int, n_notes: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Seeded (T, 88) posteriorgrams of a long recording with sparse notes:
+    background below the frame threshold, n_notes notes of 10-200 frames,
+    one note of 5000 frames and one held to the last frame, so walks cross
+    many table blocks and the no-stop tail is taken."""
+    rng = np.random.RandomState(seed)
+    frames = (rng.rand(n_frames, 88) * 0.2).astype(np.float32)
+    onsets = (rng.rand(n_frames, 88) * 0.1).astype(np.float32)
+    spans = [(rng.randint(0, 88), rng.randint(2, n_frames - 250), rng.randint(10, 200)) for _ in range(n_notes)]
+    spans += [(30, n_frames // 3, 5000), (50, n_frames - 300, 300)]
+    for p, s, length in spans:
+        frames[s : s + length, p] = rng.uniform(0.4, 0.9)
+        onsets[s - 1 : s + 2, p] = (0.3, rng.uniform(0.6, 0.95), 0.3)
     return frames, onsets
 
 
@@ -119,6 +144,64 @@ def cuda_ms(fn: Callable[[], Any], reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def stage_split(greedy_kernel: Any, inputs: Any, min_note_len: int, max_notes: int, max_iters: int, reps: int) -> dict:
+    """The kernel alone with melodia off (stage 1 only) and on (both
+    stages), timed with CUDA events, and its counters: onset candidates,
+    notes kept and, where the wrapper returns the kernel's meta, melodia
+    iterations (meta[2]) and re-walks (meta[3]). An older checkout, whose
+    `greedy_stages` returns no meta, gives a row without those counters:
+    chip_decode_times.py times such a checkout beside this one."""
+    row = {"candidates": int(inputs.n_onsets)}
+    for melodia in (False, True):
+        def call() -> Any:
+            return greedy_kernel.greedy_stages(inputs, 0.3, min_note_len, 11, max_notes, max_iters, melodia)
+
+        res = call()
+        tag = "both" if melodia else "stage1"
+        row[f"{tag}_ms"] = cuda_ms(call, reps)
+        row[f"{tag}_notes"] = int(res[1])
+        if len(res) > 3:
+            meta = res[3].cpu().tolist()
+            row[f"{tag}_rewalks"] = meta[3]
+            if melodia:
+                row["melodia_iters"] = meta[2]
+    row["us_per_candidate"] = row["stage1_ms"] * 1e3 / max(row["candidates"], 1)
+    if "melodia_iters" in row:
+        row["us_per_melodia_iter"] = (row["both_ms"] - row["stage1_ms"]) * 1e3 / max(row["melodia_iters"], 1)
+    return row
+
+
+def print_split(name: str, row: dict) -> None:
+    print(
+        f"stage split [{name}]: stage 1 alone {row['stage1_ms']:.4f} ms for {row['candidates']} candidates, "
+        f"{row['stage1_notes']} notes kept, {row['stage1_rewalks']} re-walks "
+        f"({row['us_per_candidate']:.3f} us per candidate); both stages {row['both_ms']:.4f} ms, "
+        f"{row['melodia_iters']} melodia iterations, {row['both_notes']} notes, {row['both_rewalks']} re-walks "
+        f"({row['us_per_melodia_iter']:.3f} us per melodia iteration)"
+    )
+
+
+def breakdown(tr: Any, pipeline: Any, audio: np.ndarray, sr: int, reps: int) -> dict:
+    """Where one recording's wall goes, synchronised after each stage (so
+    the stages do not overlap here as they do in transcribe)."""
+    import torch
+
+    stages = {"upload+model": 0.0, "decode": 0.0, "fetch+assembly": 0.0}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out, n_frames, n_chunks = tr._forward(audio, sr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ticket = tr._decode_dispatch(out, n_frames, n_chunks, pipeline.DecodeOptions(), 16384)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tr._collect_many([ticket])
+        t3 = time.perf_counter()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[key] += dt / reps
+    return stages
+
+
 def main() -> int:
     import torch
 
@@ -130,6 +213,9 @@ def main() -> int:
     from basic_pitch_torch import pipeline
     from basic_pitch_torch.decode import device as device_decode
     from basic_pitch_torch.decode import greedy_kernel
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_decode_cases import DEFAULTS, adversarial_cases
 
     # ---------------- phase 1: card, versions, kernel build ----------------
     smi = subprocess.run(
@@ -168,10 +254,11 @@ def main() -> int:
     long_f[100:3000, 60] = 0.5
     long_f[2500, 60] = 0.95
     fuzz.append(("long-notes", long_f, long_o, {}))
+    adversarial = adversarial_cases()
+    fuzz += adversarial
     before = greedy_kernel.launches
     for name, frames, onsets, kw in fuzz:
-        args = dict(onset_thresh=0.5, frame_thresh=0.3, min_note_len=5, max_notes=8192, max_melodia_iters=32768)
-        args.update(kw)
+        args = dict(DEFAULTS, **kw)
         f = torch.from_numpy(frames.astype(np.float32)).to(dev)
         o = torch.from_numpy(onsets.astype(np.float32)).to(dev)
         out = greedy_kernel.decode_greedy(f, o, **args)
@@ -182,6 +269,17 @@ def main() -> int:
         print(f"kernel == plain [{name}]: {int(out.n_notes)} notes, overflow {bool(out.overflow)}, max amp err {err:.3g}")
     if greedy_kernel.launches != before + len(fuzz):
         raise AssertionError("decode_greedy did not launch the kernel once per call")
+    # what each adversarial case made the batched commit do
+    for name, frames, onsets, kw in adversarial:
+        args = dict(DEFAULTS, **kw)
+        f = torch.from_numpy(frames).to(dev)
+        o = torch.from_numpy(onsets).to(dev)
+        inputs = device_decode.greedy_inputs(f, o, args["onset_thresh"], None, True, args["max_notes"], args.get("valid_frames"))
+        meta = greedy_kernel.greedy_stages(
+            inputs, args["frame_thresh"], args["min_note_len"], 11, args["max_notes"], args["max_melodia_iters"], True
+        )[3]
+        count, ovf, iters, rewalks = meta.cpu().tolist()
+        print(f"kernel counters [{name}]: {count} notes, overflow {ovf}, {iters} melodia iterations, {rewalks} re-walks")
 
     tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128)
     main_audio, main_notes = tone_mix(SR, 60.0, seed=100)
@@ -202,20 +300,21 @@ def main() -> int:
     kernel_ms = cuda_ms(lambda: greedy_kernel.decode_greedy(*args, **kw), reps=10)
     plain_ms = cuda_ms(lambda: device_decode.decode_plain(*args, **kw), reps=2)
     inputs = device_decode.greedy_inputs(note, onset, 0.5, None, True, max_notes, n_frames)
-    stages_ms = cuda_ms(
-        lambda: greedy_kernel.greedy_stages(inputs, 0.3, 11, 11, max_notes, kw["max_melodia_iters"], True), reps=10
-    )
-    # least time: read frames and onsets once, write the kept notes once;
-    # against one float32 comparison per input value at the card's
-    # non-tensor float32 rate
-    bytes_moved = 2 * T * 88 * 4 + n_main * 16 + 16
+    split_main = stage_split(greedy_kernel, inputs, 11, max_notes, kw["max_melodia_iters"], reps=10)
+    stages_ms = split_main["both_ms"]
+    # least time: read the n_frames valid frames of frames and onsets once
+    # (the padding past them is masked to zero) and write the kept notes
+    # once; against one float32 comparison per valid input value at the
+    # card's non-tensor float32 rate
+    bytes_moved = 2 * n_frames * 88 * 4 + n_main * 16 + 16
+    ops = 2 * n_frames * 88
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * T * 88 / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     print(
-        f"greedy_decode at T={T}: wrapper {kernel_ms:.3f} ms (kernel alone {stages_ms:.3f} ms), "
+        f"greedy_decode at T={T} ({n_frames} valid frames): wrapper {kernel_ms:.3f} ms (kernel alone {stages_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({bytes_moved} bytes / 3.35 TB/s; {2 * T * 88} float32 operations / 67 TFLOP/s)"
+        f"({bytes_moved} bytes / 3.35 TB/s; {ops} float32 operations / 67 TFLOP/s)"
     )
 
     # the same shape with dense seeded activity (thousands of notes)
@@ -235,6 +334,46 @@ def main() -> int:
         f"kernel == plain [dense T={T}]: {int(out_k.n_notes)} notes, max amp err {err:.3g}; "
         f"wrapper {dense_ms:.3f} ms, plain {dense_plain_ms:.1f} ms"
     )
+    print_split(f"main T={T}", split_main)
+    dense_inputs = device_decode.greedy_inputs(*dense_args[:3], None, True, max_notes, None)
+    print_split(f"dense T={T}", stage_split(greedy_kernel, dense_inputs, 11, max_notes, dense_kw["max_melodia_iters"], reps=5))
+
+    # a dense tone mix (8 voices, ~12 notes at once) through the model: the
+    # decode inputs a polyphonic recording really gives the kernel
+    poly_audio, poly_notes = tone_mix(SR, 60.0, seed=300, voices=8)
+    with torch.inference_mode():
+        out, n_frames, n_chunks = tr._forward(poly_audio, SR)
+        p_note, p_onset, _, _ = tr.decode_inputs(out, n_frames, n_chunks)
+    poly_args = (p_note, p_onset, 0.5, 0.3, 11)
+    poly_kw = dict(kw, valid_frames=n_frames)
+    out_k = greedy_kernel.decode_greedy(*poly_args, **poly_kw)
+    ref_p = device_decode.decode_plain(*poly_args, **poly_kw)
+    err = compare_decoded(out_k, ref_p)
+    max_err = max(max_err, err)
+    poly_ms = cuda_ms(lambda: greedy_kernel.decode_greedy(*poly_args, **poly_kw), reps=10)
+    print(f"kernel == plain [8-voice tone mix T={T}]: {int(out_k.n_notes)} notes, max amp err {err:.3g}; wrapper {poly_ms:.3f} ms")
+    poly_inputs = device_decode.greedy_inputs(p_note, p_onset, 0.5, None, True, max_notes, n_frames)
+    print_split(f"8-voice tone mix T={T}", stage_split(greedy_kernel, poly_inputs, 11, max_notes, kw["max_melodia_iters"], reps=10))
+
+    # one hour of frames with sparse notes: the table layout at a long T
+    long_T = 310_000
+    lf, lo = sparse_roll(long_T, 300, seed=4)
+    long_args = (torch.from_numpy(lf).to(dev), torch.from_numpy(lo).to(dev), 0.5, 0.3, 11)
+    long_kw = dict(max_notes=16384, max_melodia_iters=2 * 16384 + 2 * long_T)
+    out_k = greedy_kernel.decode_greedy(*long_args, **long_kw)
+    t0 = time.perf_counter()
+    ref_p = device_decode.decode_plain(*long_args, **long_kw)
+    torch.cuda.synchronize()
+    long_plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare_decoded(out_k, ref_p)
+    max_err = max(max_err, err)
+    long_ms = cuda_ms(lambda: greedy_kernel.decode_greedy(*long_args, **long_kw), reps=5)
+    print(
+        f"kernel == plain [sparse T={long_T}]: {int(out_k.n_notes)} notes, max amp err {err:.3g}; "
+        f"wrapper {long_ms:.3f} ms, plain {long_plain_ms:.1f} ms"
+    )
+    long_inputs = device_decode.greedy_inputs(*long_args[:3], None, True, 16384, None)
+    print_split(f"sparse T={long_T}", stage_split(greedy_kernel, long_inputs, 11, 16384, long_kw["max_melodia_iters"], reps=5))
 
     # ---------------- phase 3: the main path at full width ----------------
     warm, _ = tone_mix(SR, 10.0, seed=99)
@@ -279,23 +418,20 @@ def main() -> int:
     batch_seconds = sum(s for _, _, _, s in results[len(walls):])
     print(f"wall for transcribe_batch of 4: {batch_wall * 1e3:.1f} ms ({batch_wall / 4 * 1e3:.1f} ms per recording), real-time factor {batch_seconds / batch_wall:.1f}x")
 
-    # where one recording's wall goes (synchronised after each stage, so the
-    # stages do not overlap here as they do in transcribe)
-    stages = {"upload+model": 0.0, "decode": 0.0, "fetch+assembly": 0.0}
-    reps = 5
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        out, n_frames, n_chunks = tr._forward(main_audio, SR)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ticket = tr._decode_dispatch(out, n_frames, n_chunks, pipeline.DecodeOptions(), 16384)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        tr._collect_many([ticket])
-        t3 = time.perf_counter()
-        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
-            stages[key] += dt / reps
-    print("stage breakdown [22.05k float32, mean of 5]: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages.items()))
+    # the dense 8-voice tone mix end to end, beside the sparse one
+    t0 = time.perf_counter()
+    poly_events = tr.transcribe(poly_audio, SR)
+    poly_wall = time.perf_counter() - t0
+    print(
+        f"wall per recording [8-voice tone mix]: {poly_wall * 1e3:.1f} ms for 60.0 s of audio, real-time factor "
+        f"{60.0 / poly_wall:.1f}x; {len(poly_events)} events for {len(poly_notes)} synthesised notes, "
+        f"recall {recall(poly_events, poly_notes):.3f}"
+    )
+    if not poly_events:
+        raise AssertionError("the 8-voice tone mix gave no events")
+    for name, audio in (("22.05k float32", main_audio), ("8-voice tone mix", poly_audio)):
+        stages = breakdown(tr, pipeline, audio, SR, reps=5)
+        print(f"stage breakdown [{name}, mean of 5]: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages.items()))
 
     # ---------------- phase 4: card against CPU ----------------
     # the golden random-window audio of the tests (~4 s): no near-silent CQT

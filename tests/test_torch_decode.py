@@ -5,7 +5,7 @@ must reproduce JAX `device.decode`: starts, ends and pitches exactly,
 amplitudes within 2e-6 (their sums run in another order), `n_notes` and
 `overflow` equal. The fuzz cases mirror tests/test_pallas_decode.py. The
 kernel itself is checked on the card by tests/test_torch_kernel_cuda.py
-and by chip_smoke.py.
+and by chip_smoke.py; the adversarial cases are in torch_decode_cases.py.
 """
 
 import pathlib
@@ -20,6 +20,7 @@ from basic_pitch_torch.decode import greedy_kernel
 from basic_pitch_tpu.decode import device as j_device
 from basic_pitch_tpu.decode import pallas_kernel
 from basic_pitch_tpu.inference import unwrap_output
+from torch_decode_cases import DEFAULTS, adversarial_cases
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 
@@ -141,6 +142,33 @@ def test_matches_pallas_kernel_interpret():
         melodia_trick=True, max_notes=2048, max_melodia_iters=8192,
     )
     assert _assert_same(ref, out) > 100
+
+
+ADVERSARIAL = {name: (frames, onsets, kw) for name, frames, onsets, kw in adversarial_cases()}
+
+
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_adversarial_cases_match_jax_decode(case):
+    """Cases that would break a wrong batched commit in the CUDA kernel
+    (notes walked together that meet, ties, caps reached mid-batch,
+    padding past valid_frames)."""
+    frames, onsets, kw = ADVERSARIAL[case]
+    args = dict(DEFAULTS, **kw)
+    n = _compare(
+        frames, onsets, melodia=True, max_notes=args["max_notes"], onset_t=args["onset_thresh"],
+        frame_t=args["frame_thresh"], min_len=args["min_note_len"], max_iters=args["max_melodia_iters"],
+        valid_frames=args.get("valid_frames"), expect_overflow="max_notes" in kw or "max_melodia_iters" in kw,
+    )
+    assert n > 0
+
+
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_adversarial_cases_match_pallas_kernel_interpret(case):
+    frames, onsets, kw = ADVERSARIAL[case]
+    args = dict(DEFAULTS, **kw)
+    ref = pallas_kernel.decode_pallas(frames, onsets, interpret=True, **args)
+    out = greedy_kernel.decode_greedy(torch.from_numpy(frames), torch.from_numpy(onsets), **args)
+    assert _assert_same(ref, out) > 0
 
 
 def test_vocadito_posteriorgrams_decode_like_jax():

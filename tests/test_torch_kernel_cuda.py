@@ -13,6 +13,7 @@ import torch
 
 from basic_pitch_torch.decode import device as t_device
 from basic_pitch_torch.decode import greedy_kernel
+from torch_decode_cases import DEFAULTS, adversarial_cases
 
 
 @pytest.fixture
@@ -54,6 +55,28 @@ def test_kernel_matches_plain_on_card(cuda_device, seed, n_frames, kw):
     ref = t_device.decode_plain(f, o, **args)
     n = int(ref.n_notes)
     assert int(out.n_notes) == n and bool(out.overflow) == bool(ref.overflow)
+    for field in ("starts", "ends", "pitches"):
+        np.testing.assert_array_equal(getattr(out, field)[:n].cpu().numpy(), getattr(ref, field)[:n].cpu().numpy())
+    np.testing.assert_allclose(out.amplitudes[:n].cpu().numpy(), ref.amplitudes[:n].cpu().numpy(), atol=2e-6, rtol=0)
+
+
+ADVERSARIAL = {name: (frames, onsets, kw) for name, frames, onsets, kw in adversarial_cases()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_adversarial_cases_on_card(cuda_device, case):
+    """Notes walked or seeded in one batch whose zeroing meets each other's
+    frames, ties, and caps reached mid-batch: the kernel's in-order commit
+    must give exactly the plain decoder's notes."""
+    frames, onsets, kw = ADVERSARIAL[case]
+    args = dict(DEFAULTS, **kw)
+    f = torch.from_numpy(frames).to(cuda_device)
+    o = torch.from_numpy(onsets).to(cuda_device)
+    out = greedy_kernel.decode_greedy(f, o, **args)
+    ref = t_device.decode_plain(f, o, **args)
+    n = int(ref.n_notes)
+    assert n > 0 and int(out.n_notes) == n and bool(out.overflow) == bool(ref.overflow)
     for field in ("starts", "ends", "pitches"):
         np.testing.assert_array_equal(getattr(out, field)[:n].cpu().numpy(), getattr(ref, field)[:n].cpu().numpy())
     np.testing.assert_allclose(out.amplitudes[:n].cpu().numpy(), ref.amplitudes[:n].cpu().numpy(), atol=2e-6, rtol=0)

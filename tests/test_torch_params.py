@@ -8,6 +8,7 @@ the two cannot drift apart silently.
 
 import ast
 import io
+import os
 import pathlib
 import subprocess
 import sys
@@ -176,8 +177,11 @@ def test_wav_reader_copy_matches(tmp_path):
     )
 
 
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py")
+
+
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / name for name in CHIP_SCRIPTS]
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -221,3 +225,13 @@ def test_transcriber_without_device_raises_when_no_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         pipeline.StreamingTranscriber(device="cuda")
     assert pipeline.StreamingTranscriber(windows_per_chunk=1, device="cpu").decode_backend == "plain"
+
+
+@pytest.mark.parametrize("script", CHIP_SCRIPTS)
+def test_chip_scripts_refuse_without_a_gpu(script):
+    """With no CUDA device the chip scripts exit non-zero and print no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, script], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+    assert "needs an NVIDIA GPU" in proc.stderr
