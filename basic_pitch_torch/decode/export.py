@@ -1,21 +1,25 @@
-"""Note events -> MIDI objects.
+"""Note events -> MIDI objects, plus sonification helpers.
 
-A copy of `note_events_to_midi` and `drop_overlapping_pitch_bends` from
-`basic_pitch_tpu/decode/export.py` (the port imports nothing of the JAX
-package), built on the port's own MIDI writer (`utils/midi.py`).
+A copy of `basic_pitch_tpu/decode/export.py` (the port imports nothing of
+the JAX package), built on the port's own host decoder (`decode/notes.py`),
+MIDI writer (`utils/midi.py`) and WAV writer (`utils/audio.py`).
 """
 
 from __future__ import annotations
 
+import pathlib
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from basic_pitch_torch import constants
 from basic_pitch_torch.decode import notes as note_decode
+from basic_pitch_torch.utils import audio as audio_io
 from basic_pitch_torch.utils import midi as midi_io
 
 MIDI_VELOCITY_SCALE = 127
+SONIFY_FS = 3000
 
 NoteEvent = note_decode.NoteEvent
 
@@ -90,3 +94,87 @@ def note_events_to_midi(
     midi = midi_io.MidiFile(tempo=midi_tempo)
     midi.instruments.extend(instruments.values())
     return midi
+
+
+def model_output_to_notes(
+    output: Dict[str, np.ndarray],
+    onset_thresh: float,
+    frame_thresh: float,
+    infer_onsets: bool = True,
+    min_note_len: int = 11,
+    min_freq: Optional[float] = None,
+    max_freq: Optional[float] = None,
+    include_pitch_bends: bool = True,
+    multiple_pitch_bends: bool = False,
+    melodia_trick: bool = True,
+    midi_tempo: float = 120,
+) -> Tuple[midi_io.MidiFile, List[NoteEvent]]:
+    """Full posteriorgram -> (MidiFile, note events in seconds), decoded on
+    the host."""
+    config = note_decode.DecodeConfig(
+        onset_threshold=onset_thresh,
+        frame_threshold=frame_thresh,
+        min_note_length=min_note_len,
+        infer_onsets=infer_onsets,
+        min_freq=min_freq,
+        max_freq=max_freq,
+        melodia_trick=melodia_trick,
+    )
+    frame_notes = note_decode.decode_note_events(output["note"], output["onset"], config)
+    if include_pitch_bends:
+        with_bends = note_decode.extract_pitch_bends(output["contour"], frame_notes)
+    else:
+        with_bends = [(s, e, p, a, None) for s, e, p, a in frame_notes]
+
+    times = note_decode.model_frames_to_time(output["contour"].shape[0])
+    events = [
+        (float(times[s]), float(times[e]), int(p), float(a), b) for s, e, p, a, b in with_bends
+    ]
+    return note_events_to_midi(events, multiple_pitch_bends, midi_tempo), events
+
+
+def sonify_midi(
+    midi: midi_io.MidiFile, save_path: Union[str, pathlib.Path], sr: int = 44100
+) -> None:
+    """Render a MidiFile to a WAV file."""
+    audio_io.write_wav(save_path, midi.synthesize(sr), sr)
+
+
+def sonify_salience(
+    gram: np.ndarray,
+    semitone_resolution: int,
+    save_path: Optional[str] = None,
+    thresh: float = 0.2,
+) -> Tuple[np.ndarray, int]:
+    """Sonify a (n_freqs, n_times) salience matrix with additive sines.
+
+    Frequencies follow the log-spaced CQT grid; values below `thresh` are
+    muted. Renders at a low internal rate for speed, then resamples to
+    44.1 kHz when saving.
+    """
+    freqs = constants.ANNOTATIONS_BASE_FREQUENCY * 2.0 ** (
+        np.arange(gram.shape[0]) / (12.0 * semitone_resolution)
+    )
+    keep = freqs < SONIFY_FS / 2
+    gram = np.where(gram < thresh, 0.0, gram)[keep]
+    freqs = freqs[keep]
+
+    hop_seconds = (constants.AUDIO_N_SAMPLES / constants.ANNOT_N_FRAMES) / constants.AUDIO_SAMPLE_RATE
+    n_samples = int(np.ceil(gram.shape[1] * hop_seconds * SONIFY_FS))
+    t = np.arange(n_samples) / SONIFY_FS
+    frame_of_sample = np.minimum((t / hop_seconds).astype(int), gram.shape[1] - 1)
+
+    y = np.zeros(n_samples, dtype=np.float64)
+    for k, f in enumerate(freqs):
+        amps = gram[k]
+        if not np.any(amps):
+            continue
+        y += amps[frame_of_sample] * np.sin(2 * np.pi * f * t)
+    peak = np.abs(y).max()
+    if peak > 0:
+        y = y / peak * 0.8
+    y = y.astype(np.float32)
+
+    if save_path:
+        audio_io.write_wav(save_path, audio_io.resample(y, SONIFY_FS, 44100), 44100)
+    return y, SONIFY_FS

@@ -329,6 +329,8 @@ class StreamingTranscriber:
     def _collect_many(self, tickets: list) -> list:
         """Fetch every ticket's note count in one transfer, then its
         count-bucketed buffers, and assemble events."""
+        if not tickets:
+            return []
         metas = torch.stack(
             [torch.stack([t["decoded_dev"].n_notes, t["decoded_dev"].overflow.to(torch.int32)]) for t in tickets]
         ).cpu().tolist()

@@ -1,8 +1,14 @@
 """PyTorch port, the kernel build: the library name follows every source
 file that goes into it, so an edited header is never served from a stale
-library."""
+library, and an installed package ships every one of those files."""
+
+import fnmatch
+import pathlib
+import tomllib
 
 from basic_pitch_torch import _build
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _tree(tmp_path, header_body):
@@ -33,3 +39,14 @@ def test_library_hash_changes_with_an_included_header(tmp_path, monkeypatch):
 def test_greedy_decode_sources_include_its_header():
     names = {p.name for p in _build.sources("greedy_decode")}
     assert names == {"greedy_decode.cu", "warp_walk.cuh"}
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed package builds its kernel from the package data alone,
+    so every file the build reads must match one of its globs."""
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = config["tool"]["setuptools"]["package-data"]["basic_pitch_torch"]
+    for path in _build.sources("greedy_decode"):
+        rel = path.relative_to(_build.PACKAGE_DIR).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+    assert any(fnmatch.fnmatch("assets/nmp_icassp2022.npz", g) for g in globs)

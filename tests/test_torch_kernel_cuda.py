@@ -109,3 +109,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         greedy_kernel.decode_greedy(f[:, :80], f[:, :80], 0.5, 0.3, 5)
     with pytest.raises(ValueError):
         greedy_kernel.decode_greedy(f, f.cpu(), 0.5, 0.3, 5)
+
+
+@pytest.mark.cuda
+def test_service_decodes_requests_with_the_kernel_on_card(cuda_device):
+    """The serving path on the card: each request through the service's
+    dispatch thread launches the kernel once, and its events equal
+    `transcribe` on the same samples."""
+    from basic_pitch_torch import pipeline, serve
+
+    t = np.arange(4 * 22050) / 22050
+    y = (0.3 * np.sin(2 * np.pi * 261.63 * t) * np.exp(-2.0 * (t % 0.5)) + 0.01 * np.sin(t * 7919.0)).astype(np.float32)
+    tr = pipeline.StreamingTranscriber(windows_per_chunk=2, device=cuda_device)
+    expected = tr.transcribe(y, 22050)
+    service = serve.TranscriptionService(tr, max_batch=2, max_wait_ms=1.0)
+    try:
+        assert service.info()["decode_backend"] == "kernel"
+        before = greedy_kernel.launches
+        events = service.submit(y, 22050, dict(serve._PARAM_DEFAULTS))
+        assert greedy_kernel.launches == before + 1
+        assert events == expected and len(events) > 0
+    finally:
+        service.close()

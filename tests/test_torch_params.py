@@ -2,11 +2,13 @@
 and import hygiene.
 
 Every copy the port keeps (constants, numpy builders, host decoder, MIDI
-writer, WAV reader) is pinned here equal to the JAX package's original, so
-the two cannot drift apart silently.
+writer/reader/synth, WAV reader/writer and loaders, export helpers, CLI
+printing, host allocator tuning) is pinned here equal to the JAX package's
+original, so the two cannot drift apart silently.
 """
 
 import ast
+import dataclasses
 import io
 import os
 import pathlib
@@ -27,6 +29,9 @@ from basic_pitch_torch.ops import cqt as t_cqt
 from basic_pitch_torch.ops import harmonic as t_harmonic
 from basic_pitch_torch.ops import resample as t_resample
 from basic_pitch_torch.utils import audio as t_audio
+from basic_pitch_torch.utils import hostmem as t_hostmem
+from basic_pitch_torch.utils import midi as t_midi
+from basic_pitch_torch.utils import printing as t_printing
 from basic_pitch_tpu import constants as j_constants
 from basic_pitch_tpu.decode import device as j_device
 from basic_pitch_tpu.decode import export as j_export
@@ -37,6 +42,9 @@ from basic_pitch_tpu.ops import cqt as j_cqt
 from basic_pitch_tpu.ops import harmonic as j_harmonic
 from basic_pitch_tpu.ops import resample as j_resample
 from basic_pitch_tpu.utils import audio as j_audio
+from basic_pitch_tpu.utils import hostmem as j_hostmem
+from basic_pitch_tpu.utils import midi as j_midi
+from basic_pitch_tpu.utils import printing as j_printing
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "basic_pitch_torch"
@@ -175,6 +183,144 @@ def test_wav_reader_copy_matches(tmp_path):
     np.testing.assert_allclose(
         t_audio.resample(mono, 44100, 16000), j_audio.resample(mono, 44100, 16000), atol=1e-6
     )
+
+
+@pytest.mark.parametrize("channels,rate", [(1, 22050), (2, 44100)])
+def test_wav_writer_bytes_match(channels, rate):
+    x = (np.random.RandomState(channels).rand(3001, channels) * 2.4 - 1.2).astype(np.float32)  # clips
+    outs = []
+    for audio in (j_audio, t_audio):
+        buf = io.BytesIO()
+        audio.write_wav(buf, x[:, 0] if channels == 1 else x, rate)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+
+
+def test_pcm16_reader_and_load_audio_copies_match(tmp_path):
+    rng = np.random.RandomState(6)
+    mono = (rng.rand(9000) * 1.6 - 0.8).astype(np.float32)
+    cases = {
+        "mono22.wav": (mono, 22050),
+        "mono44.wav": (mono, 44100),
+        "mono16k.wav": (mono, 16000),
+        "stereo22.wav": (np.stack([mono, mono[::-1]], axis=1), 22050),
+    }
+    for name, (x, rate) in cases.items():
+        t_audio.write_wav(tmp_path / name, x, rate)
+    (tmp_path / "not_audio.bin").write_bytes(b"\x00" * 64)
+    for name in list(cases) + ["not_audio.bin"]:
+        a = j_audio.read_wav_pcm16_mono(tmp_path / name)
+        b = t_audio.read_wav_pcm16_mono(tmp_path / name)
+        if a is None:
+            assert b is None, name
+        else:
+            assert a[1] == b[1] and b[0].dtype == np.int16, name
+            np.testing.assert_array_equal(a[0], b[0])
+        assert t_audio._is_wav(tmp_path / name) == j_audio._is_wav(tmp_path / name)
+    assert t_audio.read_wav_pcm16_mono(tmp_path / "mono16k.wav") is None
+    assert t_audio._is_wav(tmp_path / "missing.wav") is False
+    # at the model rate there is no resampling: mono and stereo load exactly
+    for name in ("mono22.wav", "stereo22.wav"):
+        a, sr_a = j_audio.load_audio(tmp_path / name, 22050)
+        b, sr_b = t_audio.load_audio(tmp_path / name, 22050)
+        assert sr_a == sr_b == 22050 and b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(t_audio.read_wav_mono(tmp_path / name)[0], j_audio.read_wav_mono(tmp_path / name)[0])
+    a, _ = j_audio.load_audio(tmp_path / "mono16k.wav", 22050)
+    b, _ = t_audio.load_audio(tmp_path / "mono16k.wav", 22050)
+    np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
+    assert t_audio.ffmpeg_available() == j_audio.ffmpeg_available()
+    if not t_audio.ffmpeg_available():
+        with pytest.raises(t_audio.WavFormatError, match="ffmpeg"):
+            t_audio.load_audio(tmp_path / "not_audio.bin", 22050)
+
+
+def _midi_events(n, seed):
+    rng = np.random.RandomState(seed)
+    events = []
+    for _ in range(n):
+        s = float(rng.uniform(0, 5))
+        events.append((s, s + float(rng.uniform(0.05, 1)), int(rng.randint(21, 109)),
+                       float(rng.uniform(0, 1)), [int(x) for x in rng.randint(-3, 4, int(rng.randint(1, 6)))]))
+    return events
+
+
+@pytest.mark.parametrize("multiple_pitch_bends", [False, True])
+def test_midi_reader_and_synth_copies_match(tmp_path, multiple_pitch_bends):
+    events = _midi_events(25, seed=multiple_pitch_bends)
+    path = tmp_path / "notes.mid"
+    t_export.note_events_to_midi(events, multiple_pitch_bends, midi_tempo=97).write(path)
+    a, b = j_midi.read_midi(path), t_midi.read_midi(path)
+    assert (a.tempo, a.resolution) == (b.tempo, b.resolution)
+    assert len(a.instruments) == len(b.instruments) > 0
+    for ia, ib in zip(a.instruments, b.instruments):
+        assert ia.program == ib.program
+        assert [dataclasses.astuple(n) for n in ia.notes] == [dataclasses.astuple(n) for n in ib.notes]
+        assert [dataclasses.astuple(x) for x in ia.pitch_bends] == [dataclasses.astuple(x) for x in ib.pitch_bends]
+    n_sounding = sum(int(np.round(127 * e[3])) > 0 for e in events)
+    assert sum(len(i.notes) for i in b.instruments) == n_sounding
+    # the written bytes read back round-trip through the writer unchanged
+    buf = io.BytesIO()
+    b.write(buf)
+    assert t_midi.read_midi(_write(tmp_path / "again.mid", buf.getvalue())).instruments == b.instruments
+    np.testing.assert_array_equal(a.synthesize(8000), b.synthesize(8000))
+    np.testing.assert_array_equal(
+        j_export.note_events_to_midi(events).synthesize(), t_export.note_events_to_midi(events).synthesize()
+    )
+
+
+def _write(path, data):
+    path.write_bytes(data)
+    return path
+
+
+def test_model_output_to_notes_and_sonify_copies_match(tmp_path):
+    rng = np.random.RandomState(12)
+    output = {
+        "note": (rng.rand(300, 88) ** 3).astype(np.float32),
+        "onset": (rng.rand(300, 88) ** 5).astype(np.float32),
+        "contour": rng.rand(300, 264).astype(np.float32),
+    }
+    kw = dict(onset_thresh=0.5, frame_thresh=0.3, min_note_len=5, min_freq=80.0, max_freq=3000.0)
+    midi_j, events_j = j_export.model_output_to_notes(output, **kw)
+    midi_t, events_t = t_export.model_output_to_notes(output, **kw)
+    assert events_t == events_j and len(events_t) > 10
+    assert t_export.model_output_to_notes(output, include_pitch_bends=False, **kw)[1] == j_export.model_output_to_notes(
+        output, include_pitch_bends=False, **kw
+    )[1]
+    j_export.sonify_midi(midi_j, tmp_path / "j.wav", sr=8000)
+    t_export.sonify_midi(midi_t, tmp_path / "t.wav", sr=8000)
+    assert (tmp_path / "j.wav").read_bytes() == (tmp_path / "t.wav").read_bytes()
+    gram = rng.rand(88, 40).astype(np.float32)
+    y_j, fs_j = j_export.sonify_salience(gram, 1, save_path=str(tmp_path / "sj.wav"))
+    y_t, fs_t = t_export.sonify_salience(gram, 1, save_path=str(tmp_path / "st.wav"))
+    assert fs_j == fs_t
+    np.testing.assert_array_equal(y_j, y_t)
+    np.testing.assert_allclose(t_audio.read_wav(tmp_path / "st.wav")[0], j_audio.read_wav(tmp_path / "sj.wav")[0], atol=1 / 32768)
+
+
+def test_printing_copy_matches(capsys, tmp_path):
+    assert t_printing.OUTPUT_EMOJIS == j_printing.OUTPUT_EMOJIS
+    outs = []
+    for mod in (j_printing, t_printing):
+        for kind in ("MIDI", "MODEL_OUTPUT_NPZ", "NOTE_EVENTS", "OTHER_KIND"):
+            mod.generating_file_message(kind)
+            mod.file_saved_confirmation(kind, tmp_path / "x")
+            mod.failed_to_save(kind, tmp_path / "x")
+        with mod.no_warnings():
+            import logging
+
+            assert logging.getLogger().level == logging.ERROR
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "Saved to" in outs[1]
+
+
+def test_hostmem_copy_matches():
+    for name in ("_M_TRIM_THRESHOLD", "_M_MMAP_THRESHOLD", "_M_ARENA_MAX"):
+        assert getattr(t_hostmem, name) == getattr(j_hostmem, name)
+    first = t_hostmem.tune_host_allocator()
+    assert first == j_hostmem.tune_host_allocator()
+    assert t_hostmem.tune_host_allocator() == first  # idempotent
 
 
 CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py")
