@@ -78,7 +78,9 @@ class Model:
     Args:
         model_or_path: a flat-npz checkpoint path (the shipped ICASSP-2022
             weights by default), a flat JAX-layout parameter dict
-            ({"layer/field": array}), or an `nmp.NMP` module.
+            ({"layer/field": array}), or an `nmp.NMP` module. A checkpoint
+            builds the `NMP` of its own `ModelConfig`
+            (`params.config_from_params`).
         device: "cuda" (the default, which raises when there is no GPU) or
             "cpu".
 
@@ -100,8 +102,7 @@ class Model:
             module = model_or_path
         elif isinstance(model_or_path, (dict, str, pathlib.Path)):
             flat = model_or_path if isinstance(model_or_path, dict) else self._load_checkpoint(model_or_path)
-            module = nmp.NMP()
-            module.load_state_dict(params_io.from_jax_params(flat))
+            module = params_io.model_from_flat(flat)
         else:
             raise ValueError(
                 f"cannot load model from {model_or_path!r}: expected a checkpoint "

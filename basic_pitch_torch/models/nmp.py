@@ -1,8 +1,8 @@
-"""NMP ("Notes, Multipitch, Onsets") transcription network, eval forward.
+"""NMP ("Notes, Multipitch, Onsets") transcription network.
 
-PyTorch counterpart of `basic_pitch_tpu/models/nmp.py` at its default
-configuration (8 harmonics, 8 contour filters, 32 note filters, 32 onset
-filters, contours on):
+PyTorch counterpart of `basic_pitch_tpu/models/nmp.py` for any
+`ModelConfig` (the default: 8 harmonics, 8 contour filters, 32 note
+filters, 32 onset filters, contours on):
 
     audio (b, 43844) -> CQT (b, 172, 309) -> NormalizedLog -> BatchNorm
       -> HarmonicStack([0.5, 1..7], crop 264) -> (b, 8, 172, 264)
@@ -11,18 +11,26 @@ filters, contours on):
       onset head:   Conv(32, 5x5, stride (1,3)) -> BN -> ReLU
                     -> concat(note_pre) -> Conv(1, 3x3, sigmoid)
 
-Inside, activations are NCHW with H = time and W = frequency; the outputs
-keep the JAX package's (batch, time, freq) layout. Convolutions use
-TensorFlow's SAME padding, written out explicitly because
-`nn.Conv2d(padding="same")` rejects stride > 1: when the total pad is odd,
-the extra row or column goes after (bottom or right).
+With ``no_contours`` the note head reads the relu'd contour-conv channels
+and the "contour" output is that hidden activation. Inside, activations are
+NCHW with H = time and W = frequency; the outputs keep the JAX package's
+(batch, time, freq) layout. Convolutions use TensorFlow's SAME padding,
+written out explicitly because `nn.Conv2d(padding="same")` rejects
+stride > 1: when the total pad is odd, the extra row or column goes after
+(bottom or right).
+
+Batch norm has Keras semantics (`BatchNorm`): eval normalises with the
+moving statistics; train normalises with the biased batch statistics and
+returns them, and the training loop folds them into the moving averages
+after the optimizer step. No module updates its own statistics.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +43,17 @@ from basic_pitch_torch.ops.harmonic import harmonic_stack
 from basic_pitch_torch.ops.spectral import normalized_log
 
 BN_EPSILON = 1e-3  # Keras BatchNormalization default
-N_HARMONICS = 8
-HARMONICS = (0.5,) + tuple(float(h) for h in range(1, N_HARMONICS))
+BN_MOMENTUM = 0.99  # Keras: new = 0.99 * old + 0.01 * batch
+
+CONV_NAMES = ("contour_conv", "contour_out", "note_conv", "note_out", "onset_conv", "onset_out")
+BN_NAMES = ("bn_cqt", "bn_contour", "bn_onset")
 
 # maximum CQT semitone count representable below Nyquist
 MAX_N_SEMITONES = int(
     np.floor(12.0 * np.log2(0.5 * constants.AUDIO_SAMPLE_RATE / constants.ANNOTATIONS_BASE_FREQUENCY))
 )
+
+BatchStats = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def n_semitones_for_harmonics(n_harmonics: int) -> int:
@@ -52,14 +64,43 @@ def n_semitones_for_harmonics(n_harmonics: int) -> int:
     )
 
 
-@functools.lru_cache(maxsize=1)
-def cqt_kernels() -> cqt_ops.CQTKernels:
-    """The CQT geometry of the default model (309 bins, 36 per octave)."""
+def default_harmonics(n_harmonics: int) -> Tuple[float, ...]:
+    if n_harmonics > 1:
+        return (0.5,) + tuple(float(h) for h in range(1, n_harmonics))
+    return (1.0,)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static hyperparameters of an NMP model (the JAX package's
+    `ModelConfig`). ``trainable_cqt`` makes the CQT's top-octave bank a
+    parameter, L1-renormalised per bin after every optimizer step by
+    `apply_unit_norm_constraint`."""
+
+    n_harmonics: int = 8
+    n_filters_contour: int = 8
+    n_filters_notes: int = 32
+    n_filters_onsets: int = 32
+    no_contours: bool = False
+    trainable_cqt: bool = False
+
+    @property
+    def harmonics(self) -> Tuple[float, ...]:
+        return default_harmonics(self.n_harmonics)
+
+
+DEFAULT_CONFIG = ModelConfig()
+
+
+@functools.lru_cache(maxsize=8)
+def cqt_kernels_for(n_harmonics: int) -> cqt_ops.CQTKernels:
+    """The CQT geometry of a model with ``n_harmonics`` (36 bins per octave;
+    309 bins at the default 8)."""
     return cqt_ops.build_cqt_kernels(
         sr=constants.AUDIO_SAMPLE_RATE,
         hop_length=constants.FFT_HOP,
         fmin=constants.ANNOTATIONS_BASE_FREQUENCY,
-        n_bins=n_semitones_for_harmonics(N_HARMONICS) * constants.CONTOURS_BINS_PER_SEMITONE,
+        n_bins=n_semitones_for_harmonics(n_harmonics) * constants.CONTOURS_BINS_PER_SEMITONE,
         bins_per_octave=12 * constants.CONTOURS_BINS_PER_SEMITONE,
     )
 
@@ -83,50 +124,132 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
-class NMP(nn.Module):
-    """The default NMP model; load weights with `models.params.from_jax_params`."""
+class BatchNorm(nn.BatchNorm2d):
+    """Keras batch norm over NCHW (eps 1e-3). ``train=False`` normalises with
+    the moving statistics. ``train=True`` normalises in float32 with the
+    batch mean and the *biased* batch variance (`jnp.var`), and returns them
+    detached for the loop's moving-average update; the buffers are never
+    touched here (`nn.BatchNorm2d`'s own update uses the unbiased variance
+    and the other momentum convention)."""
 
-    def __init__(self):
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPSILON)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, BatchStats]:  # type: ignore[override]
+        if not train:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            return y, None
+        x = x.to(self.weight.dtype)  # float32 also under bf16 autocast
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) + self.bias.view(shape)
+        return y, (mean.detach(), var.detach())
+
+
+class NMP(nn.Module):
+    """The NMP model of one `ModelConfig`; load weights with
+    `models.params.model_from_flat` (or `from_jax_params`)."""
+
+    def __init__(self, config: ModelConfig = DEFAULT_CONFIG):
         super().__init__()
-        self.cqt = cqt_ops.CQT(cqt_kernels())
-        nh = len(HARMONICS)
-        self.bn_cqt = nn.BatchNorm2d(1, eps=BN_EPSILON)
-        self.contour_conv = SameConv2d(nh, 8, (3, 39))
-        self.bn_contour = nn.BatchNorm2d(8, eps=BN_EPSILON)
-        self.contour_out = SameConv2d(8, 1, (5, 5))
-        self.note_conv = SameConv2d(1, 32, (7, 7), stride=(1, 3))
-        self.note_out = SameConv2d(32, 1, (7, 3))
-        self.onset_conv = SameConv2d(nh, 32, (5, 5), stride=(1, 3))
-        self.bn_onset = nn.BatchNorm2d(32, eps=BN_EPSILON)
-        self.onset_out = SameConv2d(33, 1, (3, 3))
+        self.config = config
+        self.cqt = cqt_ops.CQT(cqt_kernels_for(config.n_harmonics), trainable=config.trainable_cqt)
+        nh = len(config.harmonics)
+        fc, fn, fo = config.n_filters_contour, config.n_filters_notes, config.n_filters_onsets
+        self.bn_cqt = BatchNorm(1)
+        self.contour_conv = SameConv2d(nh, fc, (3, 39))
+        self.bn_contour = BatchNorm(fc)
+        self.contour_out = SameConv2d(fc, 1, (5, 5))
+        self.note_conv = SameConv2d(fc if config.no_contours else 1, fn, (7, 7), stride=(1, 3))
+        self.note_out = SameConv2d(fn, 1, (7, 3))
+        self.onset_conv = SameConv2d(nh, fo, (5, 5), stride=(1, 3))
+        self.bn_onset = BatchNorm(fo)
+        self.onset_out = SameConv2d(fo + 1, 1, (3, 3))
         self.eval()
 
-    def frontend(self, audio: torch.Tensor) -> torch.Tensor:
-        """(b, AUDIO_N_SAMPLES) -> harmonically stacked, normalized CQT,
-        NCHW (b, n_harmonics, n_frames, 264)."""
-        x = normalized_log(self.cqt(audio)).unsqueeze(1)  # (b, 1, t, 309)
-        x = self.bn_cqt(x)
+    def frontend(self, audio: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, Dict[str, BatchStats]]:
+        """(b, AUDIO_N_SAMPLES) -> (harmonically stacked, normalized CQT,
+        NCHW (b, n_harmonics, n_frames, 264); {"bn_cqt": batch stats})."""
+        x = normalized_log(self.cqt(audio)).unsqueeze(1)  # (b, 1, t, n_bins)
+        x, stats = self.bn_cqt(x, train)
         stacked = harmonic_stack(
             x.permute(0, 2, 3, 1),
             constants.CONTOURS_BINS_PER_SEMITONE,
-            HARMONICS,
+            self.config.harmonics,
             constants.N_FREQ_BINS_CONTOURS,
         )  # (b, t, 264, h)
-        return stacked.permute(0, 3, 1, 2).contiguous()
+        return stacked.permute(0, 3, 1, 2).contiguous(), {"bn_cqt": stats}
 
-    def forward(self, audio: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(b, 43844) float32 at 22050 Hz -> {"onset": (b,t,88),
-        "contour": (b,t,264), "note": (b,t,88)}."""
-        x = self.frontend(audio)
+    def forward_and_stats(
+        self, audio: torch.Tensor, train: bool
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, BatchStats]]:
+        """The JAX package's `nmp.forward`: (b, 43844) float32 at 22050 Hz ->
+        ({"onset": (b,t,88), "contour": (b,t,264), "note": (b,t,88)}, batch
+        stats per BN layer, None in eval). With ``no_contours`` "contour" is
+        the (b, t, 264 * n_filters_contour) hidden activation, frequency-major
+        as the JAX package's channel-last reshape gives it."""
+        x, stats = self.frontend(audio, train)
 
-        c = torch.relu(self.bn_contour(self.contour_conv(x)))
-        contour = torch.sigmoid(self.contour_out(c))  # (b, 1, t, 264)
+        c, stats["bn_contour"] = self.bn_contour(self.contour_conv(x), train)
+        c = torch.relu(c)
+        if self.config.no_contours:
+            contour = c.permute(0, 2, 3, 1).reshape(c.shape[0], c.shape[2], -1)
+            note_in = c
+        else:
+            note_in = torch.sigmoid(self.contour_out(c))  # (b, 1, t, 264)
+            contour = note_in[:, 0]
 
-        n = torch.relu(self.note_conv(contour))
+        n = torch.relu(self.note_conv(note_in))
         n_pre = torch.sigmoid(self.note_out(n))  # (b, 1, t, 88)
 
-        o = torch.relu(self.bn_onset(self.onset_conv(x)))
-        o = torch.cat([n_pre, o], dim=1)  # note-pre first, then the onset stack
+        o, stats["bn_onset"] = self.bn_onset(self.onset_conv(x), train)
+        o = torch.cat([n_pre, torch.relu(o)], dim=1)  # note-pre first, then the onset stack
         onset = torch.sigmoid(self.onset_out(o))
 
-        return {"onset": onset[:, 0], "contour": contour[:, 0], "note": n_pre[:, 0]}
+        return {"onset": onset[:, 0], "contour": contour, "note": n_pre[:, 0]}, stats
+
+    def forward(self, audio: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Posteriorgrams, with batch statistics in train mode and the moving
+        ones in eval mode (the default)."""
+        return self.forward_and_stats(audio, self.training)[0]
+
+
+@torch.no_grad()
+def init_params(model: NMP, generator: torch.Generator) -> NMP:
+    """Reset ``model`` to the reference's initialization (`models.py:149`):
+    conv kernels from Keras `VarianceScaling(2, fan_avg, uniform)` drawn with
+    ``generator`` (a CPU `torch.Generator`), zero biases, identity batch
+    norm, and, with ``trainable_cqt``, the analytic CQT bank."""
+    for name in CONV_NAMES:
+        conv = getattr(model, name)
+        cout, cin, kh, kw = conv.weight.shape
+        fan_in, fan_out = cin * kh * kw, cout * kh * kw
+        limit = math.sqrt(3.0 * 2.0 / ((fan_in + fan_out) / 2.0))
+        w = torch.empty(conv.weight.shape, dtype=torch.float32).uniform_(-limit, limit, generator=generator)
+        conv.weight.copy_(w)
+        conv.bias.zero_()
+    for name in BN_NAMES:
+        getattr(model, name).reset_parameters()  # gamma 1, beta 0, mean 0, var 1
+    if model.config.trainable_cqt:
+        bank = cqt_kernels_for(model.config.n_harmonics).top_octave_kernels.T
+        model.cqt.kernel_matrix.copy_(torch.from_numpy(np.ascontiguousarray(bank)))
+    return model
+
+
+@torch.no_grad()
+def apply_unit_norm_constraint(model: NMP) -> None:
+    """In place, after each optimizer step (`models.py:153`): L2-normalise
+    every conv kernel's output channel over (in, h, w), and, with a trainable
+    CQT bank, L1-normalise each bin's complex kernel (the invariant the
+    analytic bank is built with)."""
+    for name in CONV_NAMES:
+        w = getattr(model, name).weight  # (out, in, h, w)
+        denom = torch.sqrt(torch.sum(torch.square(w), dim=(1, 2, 3), keepdim=True))
+        w.div_(torch.clamp(denom, min=1e-12))
+    if model.config.trainable_cqt:
+        km = model.cqt.kernel_matrix  # (n_fft, 2*n_filters): real columns then imag
+        n_filters = km.shape[1] // 2
+        mag = torch.sqrt(torch.square(km[:, :n_filters]) + torch.square(km[:, n_filters:]))
+        l1 = torch.clamp(torch.sum(mag, dim=0, keepdim=True), min=1e-12)
+        km.div_(torch.cat([l1, l1], dim=1))

@@ -256,14 +256,22 @@ def cqt_frame_count(n_samples: int, hop_length: int) -> int:
 
 class CQT(nn.Module):
     """Magnitude CQT with its filterbanks held as buffers, so `.to(device)`
-    moves them once and a forward call copies nothing from the host."""
+    moves them once and a forward call copies nothing from the host.
 
-    def __init__(self, kernels: CQTKernels):
+    With ``trainable`` the top-octave bank ``kernel_matrix`` ((n_fft,
+    2*n_filters), real columns then imag) is an `nn.Parameter` that
+    gradients reach and the state dict carries, the counterpart of the JAX
+    package's ``params["cqt_kernels"]``; otherwise it is a fixed buffer.
+    """
+
+    def __init__(self, kernels: CQTKernels, trainable: bool = False):
         super().__init__()
         self.kernels = kernels
-        self.register_buffer(
-            "kernel_matrix", torch.from_numpy(np.ascontiguousarray(kernels.top_octave_kernels.T)), persistent=False
-        )
+        bank = torch.from_numpy(np.ascontiguousarray(kernels.top_octave_kernels.T))
+        if trainable:
+            self.kernel_matrix = nn.Parameter(bank)
+        else:
+            self.register_buffer("kernel_matrix", bank, persistent=False)
         self.register_buffer(
             "dec_matrix", torch.from_numpy(decimation_matrix(kernels.lowpass)), persistent=False
         )

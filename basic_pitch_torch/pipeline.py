@@ -104,7 +104,8 @@ class StreamingTranscriber:
     Args:
         model_or_params: checkpoint path (the shipped ICASSP-2022 weights by
             default), a flat JAX-layout parameter dict ({"layer/field":
-            array}), or an `nmp.NMP` module.
+            array}), or an `nmp.NMP` module. A checkpoint builds the `NMP`
+            of its own `ModelConfig` (`params.config_from_params`).
         windows_per_chunk: W, the window batch per model call.
         device: "cuda" (the default, which raises when there is no GPU) or
             "cpu".
@@ -127,8 +128,7 @@ class StreamingTranscriber:
             model = model_or_params
         else:
             flat = model_or_params if isinstance(model_or_params, dict) else params_io.load_flat(model_or_params)
-            model = nmp.NMP()
-            model.load_state_dict(params_io.from_jax_params(flat))
+            model = params_io.model_from_flat(flat)
         self.model = model.to(self.device).eval()
         self.w = int(windows_per_chunk)
         if self.w < 1:

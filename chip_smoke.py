@@ -34,18 +34,31 @@ Phases, each fatal on failure:
      within 1e-4), the predict CLI in a subprocess and the stream CLI; the
      kernel must launch on every path that decodes on the card, and never
      on the windowed `predict` path, which decodes on the host;
-  6. a JSON line listing every hand kernel with its launches on the paths
+  6. training at full width on a synthetic corpus (8 + 2 tracks of 10 s,
+     written with the port's own TFRecord writer): one train step from the
+     shipped weights on 16 windows on the card and on the CPU (loss within
+     1e-6 relative, each gradient within 1e-3 of its tensor's largest; the
+     CPU in float64 beside it shows float32's own error, and a TF32 step is
+     the control that must break the bounds), step, forward and eval times
+     at batch 16 for each precision with windows/s and peak memory, the loss
+     falling over 5 steps, the train CLI in a subprocess for two epochs and
+     then in process for a third (it must resume), and the trained
+     checkpoint transcribed by the transcriber, its notes from the kernel
+     equal to the plain decoder's;
+  7. a JSON line listing every hand kernel with its launches on the paths
      driven (their sum, the split beside it), its error against the plain
      version and its times;
-  7. as the last line, {"ok": true, "device": {...}}.
+  8. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
+import logging
 import pathlib
 import struct
 import subprocess
@@ -551,6 +564,241 @@ def serving_phase() -> dict:
     return launches
 
 
+PRE_BN_BIASES = ("contour_conv/b", "onset_conv/b")  # zero gradient in exact arithmetic
+
+
+def grad_errors(got: dict, ref: dict) -> dict:
+    """Per gradient tensor: the largest difference relative to the
+    reference tensor's largest gradient (absolute for the biases in front
+    of a batch norm)."""
+    out = {}
+    for key, g in ref.items():
+        err = float(np.abs(got[key] - g).max())
+        out[key] = err if key in PRE_BN_BIASES else err / max(float(np.abs(g).max()), 1e-30)
+    return out
+
+
+def grad_violations(loss_rel: float, errors: dict) -> List[str]:
+    """The bounds of the card-vs-CPU step: loss 1e-6 relative; gradients
+    1e-3 of the tensor's largest (float32's own error is up to ~3e-4 of it,
+    see the CPU float64 line), 1e-6 absolute for the biases in front of a
+    batch norm."""
+    bad = [f"loss {loss_rel:.3g} > 1e-6"] if not loss_rel <= 1e-6 else []
+    for key, err in errors.items():
+        bound = 1e-6 if key in PRE_BN_BIASES else 1e-3
+        if not err <= bound:
+            bad.append(f"{key} {err:.3g} > {bound:g}")
+    return bad
+
+
+def training_phase(smi: str) -> dict:
+    """Training at full width on the card (see the module docstring, phase
+    6). Returns the greedy-decode kernel's launches on the trained
+    checkpoint's transcriptions."""
+    import tempfile
+
+    import torch
+
+    from basic_pitch_torch import pipeline
+    from basic_pitch_torch.cli import train as train_cli
+    from basic_pitch_torch.data import loader
+    from basic_pitch_torch.decode import device as device_decode
+    from basic_pitch_torch.decode import greedy_kernel
+    from basic_pitch_torch.models import nmp
+    from basic_pitch_torch.models import params as params_io
+    from basic_pitch_torch.train import loop as train_loop
+    from torch_train_data import write_corpus
+
+    print(f"training phase on {smi}")
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+        t0 = time.perf_counter()
+        source = write_corpus(tmp / "source", "GuitarSet", n_train=8, n_validation=2, seconds=10.0, seed=0)
+        print(f"corpus: 8 train + 2 validation tracks of 10 s, 22.05 kHz PCM16, written in {time.perf_counter() - t0:.2f} s")
+        train_iter, _ = loader.prepare_datasets(str(source), 100, 16, 1, ["GuitarSet"], [1.0], seed=0, device_targets=True)
+        host_batch = next(train_iter)
+        if host_batch["audio"].shape != (16, SR * 2 - 256) or "targets_sparse" not in host_batch:
+            raise AssertionError(f"loader batch: {host_batch['audio'].shape}, keys {sorted(host_batch)}")
+
+        # ---- one step from the shipped weights, card against CPU ----
+        # the golden random-window audio and seeded noise windows: no
+        # near-silent CQT bins (whose float32 rounding the dB normalisation
+        # amplifies); the targets are the loader's
+        rng = np.random.RandomState(11)
+        golden = np.load(REPO / "tests" / "goldens" / "random_windows.npz")["audio"]
+        parity_batch = dict(host_batch, audio=np.concatenate([golden, (0.1 * rng.randn(14, golden.shape[1])).astype(np.float32)]))
+        flat = params_io.load_flat()
+        config = train_loop.TrainConfig()
+
+        def one_step(device: "torch.device", precision: str = "highest", dtype: "torch.dtype" = torch.float32) -> Tuple[float, dict]:
+            model = params_io.model_from_flat(flat).to(device, dtype)
+            batch = train_loop.materialize_batch(train_loop.upload_batch(parity_batch, device)[0])
+            batch = {"audio": batch["audio"].to(dtype), "targets": {k: v.to(dtype) for k, v in batch["targets"].items()},
+                     "weights": {k: v.to(dtype) for k, v in batch["weights"].items()}}
+            if dtype == torch.float32:
+                optimizer = train_loop.make_optimizer(model, config)
+                loss = float(train_loop.train_step(model, optimizer, batch, dataclasses.replace(config, precision=precision))["loss"])
+            else:  # the float64 reference: loss and gradients only
+                total, _, _ = train_loop.loss_and_stats(model, batch, config)
+                total.backward()
+                loss = float(total.detach())
+            state = dict(model.state_dict())
+            state.update({name: p.grad for name, p in model.named_parameters()})
+            grads = {k: v.astype(np.float64) for k, v in params_io.to_jax_params(state).items() if not k.endswith(("/mean", "/var"))}
+            return loss, grads
+
+        # as a transcriber in the same process leaves them: the steps must too
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        loss_gpu, grads_gpu = one_step(cuda)
+        loss_tf32, grads_tf32 = one_step(cuda, precision="high")
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_cpu, grads_cpu = one_step(cpu)
+        t_cpu = time.perf_counter() - t0
+        loss_64, grads_64 = one_step(cpu, dtype=torch.float64)
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError("a training step left TF32 on")
+        rel = {name: abs(loss - loss_cpu) / abs(loss_cpu) for name, loss in (("card", loss_gpu), ("tf32", loss_tf32))}
+        errors = grad_errors(grads_gpu, grads_cpu)
+        errors_tf32 = grad_errors(grads_tf32, grads_cpu)
+        errors_64 = grad_errors(grads_cpu, grads_64)
+        print(
+            f"train step, shipped weights, batch 16 (card {t_card:.2f} s for two steps, cpu {t_cpu:.2f} s): loss card "
+            f"{loss_gpu:.8f} cpu {loss_cpu:.8f} (rel diff {rel['card']:.3g}; TF32 control {rel['tf32']:.3g}; cpu float32 "
+            f"vs float64 {abs(loss_cpu - loss_64) / abs(loss_64):.3g})"
+        )
+        for name, errs in (("card vs cpu", errors), ("TF32 card vs cpu", errors_tf32), ("cpu float32 vs float64", errors_64)):
+            print(f"gradient diff / tensor max [{name}]: " + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+        bad = grad_violations(rel["card"], errors)
+        if bad:
+            raise AssertionError(f"card and CPU train steps differ: {bad}")
+        bad_tf32 = grad_violations(rel["tf32"], errors_tf32)
+        if not bad_tf32:
+            raise AssertionError("the TF32 control step stayed inside the bounds: the check cannot tell")
+        print(f"TF32 control breaks the bounds as it must: {bad_tf32[:3]}")
+
+        # ---- step times at batch 16 for each precision ----
+        dev_batch = train_loop.upload_batch(host_batch, cuda)[0]
+        for precision in train_loop.TRAIN_PRECISIONS:
+            cfg = dataclasses.replace(config, precision=precision)
+            model = nmp.init_params(nmp.NMP(), torch.Generator().manual_seed(0)).to(cuda)
+            optimizer = train_loop.make_optimizer(model, cfg)
+            first = [float(train_loop.train_step(model, optimizer, dev_batch, cfg)["loss"]) for _ in range(5)]
+            if not (np.isfinite(first).all() and first[-1] < first[0]):
+                raise AssertionError(f"{precision}: losses over 5 steps {first}")
+            mat = train_loop.materialize_batch(dev_batch)
+
+            def forward_only() -> None:
+                with train_loop.precision_scope(precision):
+                    train_loop.loss_and_stats(model, mat, cfg)
+
+            def forward_backward() -> None:
+                with train_loop.precision_scope(precision):
+                    model.zero_grad(set_to_none=True)
+                    train_loop.loss_and_stats(model, mat, cfg)[0].backward()
+
+            torch.cuda.reset_peak_memory_stats()
+            times = {
+                "step": [cuda_ms(lambda: train_loop.train_step(model, optimizer, dev_batch, cfg), 1) for _ in range(10)],
+                "forward": [cuda_ms(forward_only, 1) for _ in range(10)],
+                "forward+backward": [cuda_ms(forward_backward, 1) for _ in range(10)],
+                "eval": [cuda_ms(lambda: train_loop.eval_step(model, dev_batch, cfg), 1) for _ in range(10)],
+            }
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            print(
+                f"train step [{precision}, batch 16, {smi}]: step {med['step']:.3f} ms (median of 10), "
+                f"forward {med['forward']:.3f} ms, forward+backward {med['forward+backward']:.3f} ms, "
+                f"eval step {med['eval']:.3f} ms; {16 / med['step'] * 1e3:.1f} windows/s; peak memory {peak:.1f} MiB; "
+                f"loss over the first 5 steps {[round(x, 5) for x in first]}"
+            )
+
+        # ---- the train CLI in a subprocess, then its resume in process ----
+        out_dir = tmp / "out"
+        cli_args = ["--source", str(source), "--output", str(out_dir), "--guitarset", "--steps-per-epoch", "5",
+                    "-v", "2", "-b", "16", "--size-evaluation-callback-datasets", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "basic_pitch_torch.cli.train", *cli_args, "-e", "2"],
+                              cwd=REPO, capture_output=True, text=True, timeout=300)
+        walls = [time.perf_counter() - t0]
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI -e 2 failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        logs = [proc.stderr.splitlines()]
+
+        class Collect(logging.Handler):
+            def emit(self, record: logging.LogRecord) -> None:
+                resumed_logs.append(record.getMessage())
+
+        resumed_logs: List[str] = []
+        root = logging.getLogger()
+        handler = Collect()
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        try:
+            t0 = time.perf_counter()
+            train_cli.main([*cli_args, "-e", "3"])
+            walls.append(time.perf_counter() - t0)
+        finally:
+            root.removeHandler(handler)
+        logs.append(resumed_logs)
+        run_dirs = sorted(p.parent for p in out_dir.glob("*/" + train_loop.TRAIN_STATE_NAME))
+        if len(run_dirs) != 1:
+            raise AssertionError(f"train CLI runs: {run_dirs}")
+        run_dir = run_dirs[0]
+        for name in ("model.best.npz", "checkpoints/model.00.npz", "checkpoints/model.01.npz", "checkpoints/model.02.npz"):
+            if not (run_dir / name).exists():
+                raise AssertionError(f"train CLI wrote no {name}")
+        epoch_lines = [[line.split("INFO:root:")[-1] for line in lines if "epoch " in line and "train_loss=" in line] for lines in logs]
+        if len(epoch_lines[0]) != 2 or len(epoch_lines[1]) != 1 or not epoch_lines[1][0].startswith("epoch 2:"):
+            raise AssertionError(f"train CLI epochs: {epoch_lines}")
+        if not any("resumed" in line for line in resumed_logs):
+            raise AssertionError("the second train CLI run did not resume")
+        for name, wall, lines in zip(("subprocess, start-up included", "in process, resumed"), walls, epoch_lines):
+            print(f"train CLI ({name}) {wall:.2f} s: " + " | ".join(lines))
+
+        # ---- the trained checkpoint through the transcriber and the kernel ----
+        tr = pipeline.StreamingTranscriber(run_dir / "model.best.npz", device="cuda", windows_per_chunk=128)
+        mixes = [tone_mix(SR, 30.0, seed=700 + i, voices=1 + 7 * i)[0] for i in range(2)]
+        max_err = 0.0
+        for i, mix in enumerate(mixes):
+            with torch.inference_mode():
+                out, n_frames, n_chunks = tr._forward(mix, SR)
+                note, onset, _, floor = tr.decode_inputs(out, n_frames, n_chunks)
+            max_notes = max(16384, floor)
+            kw = dict(max_notes=max_notes, max_melodia_iters=2 * max_notes + 2 * note.shape[0], valid_frames=n_frames)
+            # the default thresholds, and thresholds at this barely trained
+            # model's own 99th (onset) and 90th (frame) percentiles, where
+            # its posteriorgrams give the kernel notes to walk
+            q_onset = float(torch.quantile(onset[:n_frames], 0.99))
+            q_frame = float(torch.quantile(note[:n_frames], 0.9))
+            for name, onset_t, frame_t in (("default thresholds", 0.5, 0.3), ("percentile thresholds", q_onset, q_frame)):
+                out_k = greedy_kernel.decode_greedy(note, onset, onset_t, frame_t, 11, **kw)
+                t0 = time.perf_counter()
+                ref_p = device_decode.decode_plain(note, onset, onset_t, frame_t, 11, **kw)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                max_err = max(max_err, compare_decoded(out_k, ref_p))
+                print(
+                    f"kernel == plain [trained checkpoint, 30 s mix {i}, {name} {onset_t:.4f}/{frame_t:.4f}]: "
+                    f"{int(out_k.n_notes)} notes, overflow {bool(out_k.overflow)}; plain decode {plain_s:.2f} s"
+                )
+            print(
+                f"trained checkpoint posteriorgrams [30 s mix {i}]: note mean {float(note[:n_frames].mean()):.4f}, "
+                f"max {float(note[:n_frames].max()):.4f}; onset max {float(onset[:n_frames].max()):.4f}"
+            )
+        greedy_kernel.launches = 0
+        events = [tr.transcribe(mix, SR) for mix in mixes]
+        launches = greedy_kernel.launches
+        if launches != len(mixes):
+            raise AssertionError(f"the trained checkpoint's transcriptions launched the kernel {launches} times")
+        print(f"trained checkpoint transcribed: {[len(e) for e in events]} events, {launches} kernel launches, max amp err {max_err:.3g}")
+    print(f"training phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"trained_checkpoint": launches}
+
+
 def main() -> int:
     import torch
 
@@ -806,9 +1054,12 @@ def main() -> int:
 
     # ---------------- phase 5: the serving surfaces ----------------
     by_path = {"main": main_launches, **serving_phase()}
+
+    # ---------------- phase 6: training ----------------
+    by_path.update(training_phase(smi))
     print(f"greedy_decode launches by path: {json.dumps(by_path)}")
 
-    # ---------------- phase 6: kernels ----------------
+    # ---------------- phase 7: kernels ----------------
     kernels = [{
         "name": "greedy_decode",
         "route": "cuda",
@@ -825,7 +1076,7 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels}))
 
-    # ---------------- phase 7: result ----------------
+    # ---------------- phase 8: result ----------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -50,3 +50,17 @@ def test_package_data_ships_every_kernel_source():
         rel = path.relative_to(_build.PACKAGE_DIR).as_posix()
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
     assert any(fnmatch.fnmatch("assets/nmp_icassp2022.npz", g) for g in globs)
+
+
+def test_package_find_ships_every_subpackage():
+    """The package find of pyproject.toml picks up every subpackage of the
+    port (the training slice's `train` and `data` among them)."""
+    from setuptools import find_packages
+
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    found = set(find_packages(str(REPO), include=config["tool"]["setuptools"]["packages"]["find"]["include"]))
+    on_disk = {
+        "basic_pitch_torch" + ("." + ".".join(p.parent.relative_to(_build.PACKAGE_DIR).parts) if p.parent != _build.PACKAGE_DIR else "")
+        for p in _build.PACKAGE_DIR.rglob("__init__.py")
+    }
+    assert {"basic_pitch_torch.train", "basic_pitch_torch.data"} <= on_disk <= found

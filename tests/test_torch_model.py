@@ -68,3 +68,36 @@ def test_same_padding_matches_tf(size, kernel, stride):
     out = (size + before + after - kernel) // stride + 1
     assert out == -(-size // stride)
     assert after - before in (0, 1)
+
+
+@pytest.mark.parametrize("variant", ["trainable_cqt", "no_contours"])
+def test_config_checkpoints_match_jax_predict_fn(variant, tmp_path):
+    """A checkpoint trained with a learnable filterbank or without contours
+    loads into `inference.Model` and `StreamingTranscriber` as the NMP of its
+    own config (a learned bank kept, an 8-channel note conv accepted), and
+    their posteriorgrams equal JAX `nmp.predict_fn` within 1e-5 on noise
+    audio. Without contours the "contour" output is the unbounded hidden
+    activation (values past 1), held to the repo's model tolerance, 1e-4."""
+    from basic_pitch_torch import inference, pipeline
+    from basic_pitch_tpu.models import params as j_params
+
+    config = j_nmp.ModelConfig(**{variant: True})
+    params = j_nmp.init_params(jax.random.PRNGKey(3), config)
+    if variant == "trainable_cqt":  # a learned bank, away from the analytic one
+        bank = np.asarray(params["cqt_kernels"])
+        params["cqt_kernels"] = jnp.asarray(bank * (1 + 0.05 * np.random.RandomState(0).randn(*bank.shape)), jnp.float32)
+    j_params.save_params(tmp_path / "model.npz", params)
+    audio = (np.random.RandomState(4).randn(2, constants.AUDIO_N_SAMPLES) * 0.1).astype(np.float32)
+    ref = jax.jit(lambda p, a: j_nmp.predict_fn(p, a, config))(params, jnp.asarray(audio))
+
+    model = inference.Model(tmp_path / "model.npz", device="cpu")
+    assert model.module.config == t_nmp.ModelConfig(**{variant: True})
+    out = model.predict(audio)
+    transcriber = pipeline.StreamingTranscriber(tmp_path / "model.npz", windows_per_chunk=2, device="cpu")
+    with torch.inference_mode():
+        chunk = transcriber.model(torch.from_numpy(audio))
+    for head in ("note", "onset", "contour"):
+        atol = 1e-4 if head == "contour" and variant == "no_contours" else 1e-5
+        assert out[head].shape == np.asarray(ref[head]).shape, head
+        np.testing.assert_allclose(out[head], np.asarray(ref[head]), atol=atol, rtol=0, err_msg=head)
+        np.testing.assert_allclose(chunk[head].numpy(), np.asarray(ref[head]), atol=atol, rtol=0, err_msg=head)

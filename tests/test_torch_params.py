@@ -3,7 +3,8 @@ and import hygiene.
 
 Every copy the port keeps (constants, numpy builders, host decoder, MIDI
 writer/reader/synth, WAV reader/writer and loaders, export helpers, CLI
-printing, host allocator tuning) is pinned here equal to the JAX package's
+printing, host allocator tuning, the training data codecs and loader
+constants, the training defaults) is pinned here equal to the JAX package's
 original, so the two cannot drift apart silently.
 """
 
@@ -20,6 +21,10 @@ import pytest
 import torch
 
 from basic_pitch_torch import constants as t_constants
+from basic_pitch_torch.data import loader as t_loader
+from basic_pitch_torch.data import proto as t_proto
+from basic_pitch_torch.data import serialization as t_serialization
+from basic_pitch_torch.data import tfrecord as t_tfrecord
 from basic_pitch_torch.decode import device as t_device
 from basic_pitch_torch.decode import export as t_export
 from basic_pitch_torch.decode import notes as t_notes
@@ -28,11 +33,17 @@ from basic_pitch_torch.models import params as t_params
 from basic_pitch_torch.ops import cqt as t_cqt
 from basic_pitch_torch.ops import harmonic as t_harmonic
 from basic_pitch_torch.ops import resample as t_resample
+from basic_pitch_torch.train import loop as t_loop
+from basic_pitch_torch.train import losses as t_losses
 from basic_pitch_torch.utils import audio as t_audio
 from basic_pitch_torch.utils import hostmem as t_hostmem
 from basic_pitch_torch.utils import midi as t_midi
 from basic_pitch_torch.utils import printing as t_printing
 from basic_pitch_tpu import constants as j_constants
+from basic_pitch_tpu.data import loader as j_loader
+from basic_pitch_tpu.data import proto as j_proto
+from basic_pitch_tpu.data import serialization as j_serialization
+from basic_pitch_tpu.data import tfrecord as j_tfrecord
 from basic_pitch_tpu.decode import device as j_device
 from basic_pitch_tpu.decode import export as j_export
 from basic_pitch_tpu.decode import notes as j_notes
@@ -41,6 +52,8 @@ from basic_pitch_tpu.models import params as j_params
 from basic_pitch_tpu.ops import cqt as j_cqt
 from basic_pitch_tpu.ops import harmonic as j_harmonic
 from basic_pitch_tpu.ops import resample as j_resample
+from basic_pitch_tpu.train import loop as j_loop
+from basic_pitch_tpu.train import losses as j_losses
 from basic_pitch_tpu.utils import audio as j_audio
 from basic_pitch_tpu.utils import hostmem as j_hostmem
 from basic_pitch_tpu.utils import midi as j_midi
@@ -104,11 +117,80 @@ def test_cqt_builders_match(geometry):
     )
 
 
+@pytest.mark.parametrize("n_harmonics", [1, 2, 5, 8])
+def test_model_config_geometry_matches(n_harmonics):
+    assert t_nmp.default_harmonics(n_harmonics) == j_nmp.default_harmonics(n_harmonics)
+    assert t_nmp.n_semitones_for_harmonics(n_harmonics) == j_nmp.n_semitones_for_harmonics(n_harmonics)
+    a, b = j_nmp.cqt_kernels_for(n_harmonics), t_nmp.cqt_kernels_for(n_harmonics)
+    assert a.n_bins == b.n_bins
+    np.testing.assert_array_equal(a.top_octave_kernels, b.top_octave_kernels)
+    j_config, t_config = j_nmp.ModelConfig(n_harmonics=n_harmonics), t_nmp.ModelConfig(n_harmonics=n_harmonics)
+    for field in ("n_harmonics", "n_filters_contour", "n_filters_notes", "n_filters_onsets", "no_contours",
+                  "trainable_cqt", "harmonics"):
+        assert getattr(t_config, field) == getattr(j_config, field), field
+    assert (t_nmp.BN_EPSILON, t_nmp.BN_MOMENTUM, t_nmp.MAX_N_SEMITONES) == (
+        j_nmp.BN_EPSILON, j_nmp.BN_MOMENTUM, j_nmp.MAX_N_SEMITONES
+    )
+
+
+def test_training_defaults_match():
+    """The losses' constants, `TrainConfig`'s fields and defaults, and the
+    transport's head geometry."""
+    assert (t_losses.DEFAULT_LABEL_SMOOTHING, t_losses.DEFAULT_POSITIVE_WEIGHT, t_losses._EPS) == (
+        j_losses.DEFAULT_LABEL_SMOOTHING, j_losses.DEFAULT_POSITIVE_WEIGHT, j_losses._EPS
+    )
+    t_fields = {f.name: f.default for f in dataclasses.fields(t_loop.TrainConfig)}
+    j_fields = {f.name: f.default for f in dataclasses.fields(j_loop.TrainConfig)}
+    assert t_fields == j_fields
+    assert t_loop.TRAIN_PRECISIONS == tuple(j_loop._TRAIN_PRECISIONS)
+    assert t_loop._HEAD_BINS == j_loop._HEAD_BINS and t_loop._WIRE_MIN_BUCKET == j_loop._WIRE_MIN_BUCKET
+    for name in ("ReduceLROnPlateau", "EarlyStopping"):
+        t_defaults = {f.name: f.default for f in dataclasses.fields(getattr(t_loop, name))}
+        j_defaults = {f.name: f.default for f in dataclasses.fields(getattr(j_loop, name))}
+        assert t_defaults == j_defaults, name
+
+
+def test_loader_constants_match():
+    assert t_loader.N_SAMPLES_PER_TRACK == j_loader.N_SAMPLES_PER_TRACK
+    assert t_loader._SPARSE_CAP_FLOORS == j_loader._SPARSE_CAP_FLOORS
+    assert t_loader._HEAD_BINS == j_loader._HEAD_BINS and t_loader._HEAD_TO_SER == j_loader._HEAD_TO_SER
+    assert t_serialization.FEATURE_NAMES == j_serialization.FEATURE_NAMES
+
+
+def test_proto_and_tfrecord_copies_match(tmp_path):
+    """The protobuf codec gives the JAX package's bytes for every feature
+    kind and decodes them alike; the table-driven CRC-32C equals the JAX
+    package's (native where built) on seeded buffers."""
+    rng = np.random.RandomState(3)
+    features = {
+        "bytes": [b"abc", b""],
+        "ints": rng.randint(-(2**40), 2**40, 17).astype(np.int64),
+        "floats": rng.randn(9).astype(np.float32),
+        "tensor": j_proto.encode_tensor(rng.randn(3, 4).astype(np.float32)),
+    }
+    encoded = t_proto.encode_example(features)
+    assert encoded == j_proto.encode_example(features)
+    a, b = t_proto.decode_example(encoded), j_proto.decode_example(encoded)
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(np.asarray(a[key], dtype=object if key in ("bytes", "tensor") else None),
+                                      np.asarray(b[key], dtype=object if key in ("bytes", "tensor") else None))
+    for dtype in (np.float32, np.int32, np.int64):
+        arr = (rng.randn(2, 5) * 100).astype(dtype)
+        assert t_proto.encode_tensor(arr) == j_proto.encode_tensor(arr)
+        np.testing.assert_array_equal(t_proto.decode_tensor(t_proto.encode_tensor(arr)), arr)
+    for n in (0, 1, 7, 8, 9, 1000, 4099):
+        data = rng.bytes(n)
+        assert t_tfrecord.crc32c(data) == j_tfrecord.crc32c(data), n
+        assert t_tfrecord.masked_crc(data) == j_tfrecord.masked_crc(data), n
+    assert t_tfrecord.crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
+
+
 def test_model_cqt_geometry_matches():
-    a, b = j_nmp.cqt_kernels_for(8), t_nmp.cqt_kernels()
+    a, b = j_nmp.cqt_kernels_for(8), t_nmp.cqt_kernels_for(t_nmp.DEFAULT_CONFIG.n_harmonics)
     np.testing.assert_array_equal(a.top_octave_kernels, b.top_octave_kernels)
     assert a.n_bins == b.n_bins == 309
-    assert t_nmp.HARMONICS == j_nmp.DEFAULT_CONFIG.harmonics
+    assert t_nmp.DEFAULT_CONFIG.harmonics == j_nmp.DEFAULT_CONFIG.harmonics
 
 
 @pytest.mark.parametrize("stride", [2, 4, 8])
@@ -324,10 +406,17 @@ def test_hostmem_copy_matches():
 
 
 CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py")
+TRAINING_SLICE = ("train/losses.py", "train/loop.py", "train/visualize.py", "data/proto.py", "data/tfrecord.py",
+                  "data/serialization.py", "data/loader.py", "cli/train.py")
 
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / name for name in CHIP_SCRIPTS]
+
+
+def test_scans_cover_the_training_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert set(TRAINING_SLICE) <= scanned
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -357,6 +446,7 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'basic_pitch_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'basic_pitch_torch.pipeline' in sys.modules\n"
+        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE!r})\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
