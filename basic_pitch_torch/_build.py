@@ -1,9 +1,13 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
-with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``basic_pitch_torch/build/`` (listed in ``.gitignore``), then
-loaded with ctypes. The library name carries a hash of the source, of every
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code)
+has a plain C interface and is compiled on first use into
+``basic_pitch_torch/build/`` (listed in ``.gitignore``), then loaded with
+ctypes: a ``.cu`` with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC``, a ``.cpp`` with ``g++ -O3 -shared -fPIC`` (no
+``-march=native``: a build directory shared between machines must not hold
+another host's instructions, and the packer's float rounding must be the
+JAX package's). The library name carries a hash of the source, of every
 ``csrc/`` header it includes (``#include "..."``, followed recursively) and
 of the flags, so an edited source or header is rebuilt and concurrent
 builders never see a half-written file. Nothing here runs at import time.
@@ -29,6 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC")  # the JAX package's native build
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -51,13 +56,31 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's nvcc on PATH")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: g++ on PATH."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host packer needs a C++ compiler on PATH")
+    return found
+
+
+def source(name: str) -> pathlib.Path:
+    """``csrc/<name>.cu``, else ``csrc/<name>.cpp``."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
+def _is_cuda(name: str) -> bool:
+    return source(name).suffix == ".cu"
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def sources(name: str) -> List[pathlib.Path]:
-    """``csrc/<name>.cu`` and the ``csrc/`` files it includes, recursively."""
+    """`source(name)` and the ``csrc/`` files it includes, recursively."""
     found: List[pathlib.Path] = []
-    pending = [CSRC_DIR / f"{name}.cu"]
+    pending = [source(name)]
     while pending:
         path = pending.pop()
         if path in found:
@@ -69,15 +92,15 @@ def sources(name: str) -> List[pathlib.Path]:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the built library for ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """Where the built library for `source(name)` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if _is_cuda(name) else HOST_FLAGS).encode())
     for path in sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile `source(name)` unless its library is already built."""
     target = library_path(name)
     if target.exists():
         return target
@@ -85,10 +108,13 @@ def build(name: str) -> pathlib.Path:
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        if _is_cuda(name):
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source(name))]
+        else:
+            cmd = [cxx_path(), *HOST_FLAGS, "-o", tmp, str(source(name))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed for {source(name).name}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):
@@ -97,7 +123,7 @@ def build(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed and load ``csrc/<name>.cu``'s library (once per process)."""
+    """Build if needed and load `source(name)`'s library (once per process)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -1,10 +1,11 @@
 """``basic-pitch-torch-serve`` — HTTP transcription server on one GPU.
 
 The flags of `basic_pitch_tpu/cli/serve.py`, plus ``--device``. The JAX
-server's ``--decode-backend`` and ``--pcm-transport`` have no counterpart:
-the device fixes both (the greedy-decode CUDA kernel and raw upload on the
-card, the plain decoder on the CPU). ``--head-precision`` waits for the
-transcriber's precision settings.
+server's ``--decode-backend`` has no counterpart: the device fixes the
+decoder (the greedy-decode CUDA kernel on the card, the plain decoder on the
+CPU). ``--pcm-transport`` and ``--head-precision`` set the transcriber's
+``pcm_transport`` and ``head_precision``, with the JAX server's choices and
+defaults.
 """
 
 from __future__ import annotations
@@ -35,6 +36,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--windows-per-chunk", type=int, default=128,
         help="device dispatch width (see StreamingTranscriber)",
+    )
+    parser.add_argument(
+        "--pcm-transport", choices=["codec", "raw", "auto"], default="auto",
+        help="how PCM reaches the device: measured by default",
+    )
+    parser.add_argument(
+        "--head-precision", choices=["highest", "high", "default"],
+        default="highest",
+        help="numerics of the model's six head convs only (the CQT front end "
+        "always runs float32): 'high' is TF32, 'default' bf16 autocast; "
+        "'highest' keeps the library path's float32 posteriorgrams",
     )
     parser.add_argument(
         "--max-batch", type=int, default=8,
@@ -103,6 +115,8 @@ def main(args: Optional[List[str]] = None) -> None:
         ns.model_path,
         windows_per_chunk=ns.windows_per_chunk,
         device=ns.device,
+        pcm_transport=ns.pcm_transport,
+        head_precision=ns.head_precision,
     )
     if ns.warmup:
         _warm(transcriber, ns.warmup)
@@ -119,8 +133,9 @@ def main(args: Optional[List[str]] = None) -> None:
     )
     host, port = server.server_address[:2]
     logging.info(
-        "basic-pitch-torch-serve on http://%s:%d (device=%s decode=%s transport=%s)",
+        "basic-pitch-torch-serve on http://%s:%d (device=%s decode=%s transport=%s head_precision=%s)",
         host, port, transcriber.device, transcriber.decode_backend, transcriber.pcm_transport,
+        transcriber.head_precision,
     )
     try:
         server.serve_forever()

@@ -522,7 +522,12 @@ def predict_and_save_streaming(
     """
     model = _as_model(model_or_model_path, device)
     transcriber = pipeline.StreamingTranscriber(
-        model.module, windows_per_chunk=windows_per_chunk, device=model.device
+        model.module,
+        windows_per_chunk=windows_per_chunk,
+        device=model.device,
+        # measured per process: the codec where the link is the wall, one
+        # pinned copy where it is not; events are identical either way
+        pcm_transport="auto",
     )
 
     min_note_len = _min_note_frames(minimum_note_length)

@@ -23,14 +23,24 @@ Batch norm has Keras semantics (`BatchNorm`): eval normalises with the
 moving statistics; train normalises with the biased batch statistics and
 returns them, and the training loop folds them into the moving averages
 after the optimizer step. No module updates its own statistics.
+
+Two controls of the JAX package's `nmp.forward` steer the model stage:
+``precision`` for the front end (the CQT's matmuls) and ``head_precision``
+for the six head convs, each one of `PRECISIONS` (`precision_scope`), and
+``conv_impl``, the heads' lowering: cuDNN convolutions ("conv"), im2col
+patches and one matmul ("im2col"), a frequency-blocked Toeplitz matmul for
+the contour conv ("toeplitz[:fb]"), or both ("mxu[:fb]"). The lowerings
+are plain PyTorch matmuls; on the TPU they traded lane fill of its matrix
+unit against extra work, on the card each is a question to measure.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,11 +115,45 @@ def cqt_kernels_for(n_harmonics: int) -> cqt_ops.CQTKernels:
     )
 
 
+PRECISIONS = ("highest", "high", "default")
+
+
+@contextlib.contextmanager
+def precision_scope(precision: str, device_type: Optional[str] = None) -> Iterator[None]:
+    """The numerics of one stage: "highest" is float32 with TF32 off, "high"
+    lets cuBLAS and cuDNN use TF32, "default" runs the matmuls and convs
+    under bf16 autocast on ``device_type`` (batch norm and the model's
+    outputs stay float32). With ``device_type`` None only the TF32 flags
+    are set: the training step's scope, which also covers the backward
+    pass. The process-wide TF32 flags are restored on exit, so a scope never
+    leaks into the stage after it (the transcriber keeps them off)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tf32 = precision == "high"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        if device_type is None:
+            yield
+        else:
+            with torch.autocast(device_type, dtype=torch.bfloat16, enabled=precision == "default"):
+                yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def _same_pad(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """TensorFlow SAME padding (before, after) of one spatial dimension."""
     out = math.ceil(size / stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kernel: Tuple[int, int], stride: Tuple[int, int]) -> torch.Tensor:
+    top, bottom = _same_pad(x.shape[2], kernel[0], stride[0])
+    left, right = _same_pad(x.shape[3], kernel[1], stride[1])
+    return F.pad(x, (left, right, top, bottom))
 
 
 class SameConv2d(nn.Conv2d):
@@ -119,27 +163,124 @@ class SameConv2d(nn.Conv2d):
         super().__init__(cin, cout, kernel, stride=stride, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        top, bottom = _same_pad(x.shape[2], self.kernel_size[0], self.stride[0])
-        left, right = _same_pad(x.shape[3], self.kernel_size[1], self.stride[1])
-        return super().forward(F.pad(x, (left, right, top, bottom)))
+        return super().forward(_pad_same(x, self.kernel_size, self.stride))
+
+
+# Memory guard of the im2col lowering (the JAX package's value): a conv
+# whose patches would hold more elements than this runs the plain lowering
+# (the contour conv's 936-wide patches at a 128-window chunk would be
+# 5.4e9 elements, 21.8 GB in float32).
+_IM2COL_MAX_PATCH_ELEMS = 800_000_000
+
+
+def conv2d_im2col(x: torch.Tensor, conv: SameConv2d) -> torch.Tensor:
+    """SAME conv as explicit padding, `F.unfold` patches (channel-major: cin
+    slowest, then kh, then kw, the order of `conv_general_dilated_patches`)
+    and one matmul against the (cout, cin*kh*kw) weight matrix."""
+    (kh, kw), stride = conv.kernel_size, conv.stride
+    bsz, cin, h, w = x.shape
+    ho, wo = -(-h // stride[0]), -(-w // stride[1])
+    k = cin * kh * kw
+    if bsz * ho * wo * k > _IM2COL_MAX_PATCH_ELEMS:
+        return conv(x)
+    patches = F.unfold(_pad_same(x, (kh, kw), stride), (kh, kw), stride=stride)  # (b, k, ho*wo)
+    y = torch.matmul(conv.weight.reshape(conv.out_channels, k), patches)  # (b, cout, ho*wo)
+    return y.reshape(bsz, conv.out_channels, ho, wo) + conv.bias.view(1, -1, 1, 1)
+
+
+def conv2d_toeplitz(x: torch.Tensor, conv: SameConv2d, fb: Optional[int] = None) -> torch.Tensor:
+    """SAME stride-1 conv as a frequency-blocked block-Toeplitz matmul (the
+    JAX package's `_conv2d_toeplitz`): a block of ``fb`` frequency bins
+    moves from the matmul's rows into its columns, so the product is
+    (b*t*nblocks, kh*(fb+kw-1)*cin) x (.., fb*cout), at (fb+kw-1)/kw times
+    the conv's multiply-adds (the band's zeros). Computed channel-last, as
+    in the JAX package, and returned NCHW."""
+    if tuple(conv.stride) != (1, 1):
+        raise ValueError("toeplitz path is stride-1 only")
+    kh, kw = conv.kernel_size
+    cout, cin = conv.out_channels, conv.in_channels
+    bsz, _, t, f = x.shape
+    if fb is None or fb >= f:
+        fb = f
+    if f % fb:
+        raise ValueError(f"block size {fb} must divide the frequency axis {f}")
+    nb = f // fb
+    pt0, pf0 = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, pf0, kw - 1 - pf0, pt0, kh - 1 - pt0))  # (b, t+kh-1, f+kw-1, cin)
+    fslab = fb + kw - 1
+    cols = fslab * cin
+    # banded per-block weight: row fo of the block holds w at columns
+    # [fo*cin, fo*cin + kw*cin); one matrix serves every block (built by the
+    # pad-and-reshape Toeplitz trick: rows of cols + cin, flattened, trimmed)
+    w = conv.weight.permute(2, 3, 1, 0).reshape(kh, kw * cin, cout)  # HWIO rows
+    wrows = w.new_zeros((kh, fb, cols + cin, cout))
+    wrows[:, :, : kw * cin, :] = w[:, None, :, :]
+    wmat = wrows.reshape(kh, fb * (cols + cin), cout)[:, : fb * cols, :].reshape(kh, fb, cols, cout)
+    wmat = wmat.permute(0, 2, 1, 3).reshape(kh * cols, fb * cout)
+    xf = xp.reshape(bsz, t + kh - 1, (f + kw - 1) * cin)
+    rows = torch.cat(
+        [
+            torch.cat([xf[:, dt : dt + t, j * fb * cin : j * fb * cin + cols] for dt in range(kh)], dim=-1)
+            for j in range(nb)
+        ],
+        dim=1,
+    )  # (b, nb*t, kh*cols), block-major
+    y = torch.matmul(rows.reshape(bsz * nb * t, kh * cols), wmat)
+    y = y.reshape(bsz, nb, t, fb, cout).permute(0, 4, 2, 1, 3).reshape(bsz, cout, t, f)
+    return y + conv.bias.view(1, -1, 1, 1)
+
+
+ConvFn = Callable[[torch.Tensor, SameConv2d], torch.Tensor]
+
+
+def _plain_conv(x: torch.Tensor, conv: SameConv2d) -> torch.Tensor:
+    return conv(x)
+
+
+def resolve_conv_impl(conv_impl: str) -> Tuple[ConvFn, ConvFn]:
+    """conv_impl -> (lowering of the five other head convs, lowering of
+    contour_conv), with the JAX package's grammar and errors:
+
+    "conv"          cuDNN convolutions everywhere.
+    "im2col"        patches + one matmul for every head conv whose patches
+                    fit `_IM2COL_MAX_PATCH_ELEMS`, the plain conv otherwise.
+    "toeplitz[:fb]" the Toeplitz matmul for contour_conv (stride 1, fb a
+                    divisor of 264, default 24), plain convs elsewhere.
+    "mxu[:fb]"      the Toeplitz contour_conv and im2col elsewhere.
+    """
+    name, _, arg = conv_impl.partition(":")
+    if arg and name not in ("toeplitz", "mxu"):
+        raise ValueError(f"conv_impl {name!r} takes no :arg (got {conv_impl!r})")
+    if name == "conv":
+        return _plain_conv, _plain_conv
+    if name == "im2col":
+        return conv2d_im2col, conv2d_im2col
+    if name in ("toeplitz", "mxu"):
+        fb = int(arg) if arg else 24
+        if fb < 1:
+            raise ValueError(f"conv_impl block size must be >= 1, got {conv_impl!r}")
+        toe = functools.partial(conv2d_toeplitz, fb=fb)
+        return (conv2d_im2col if name == "mxu" else _plain_conv), toe
+    raise ValueError(f"conv_impl must be conv|im2col|toeplitz[:fb]|mxu[:fb], got {conv_impl!r}")
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Keras batch norm over NCHW (eps 1e-3). ``train=False`` normalises with
-    the moving statistics. ``train=True`` normalises in float32 with the
-    batch mean and the *biased* batch variance (`jnp.var`), and returns them
-    detached for the loop's moving-average update; the buffers are never
-    touched here (`nn.BatchNorm2d`'s own update uses the unbiased variance
-    and the other momentum convention)."""
+    """Keras batch norm over NCHW (eps 1e-3), in float32 whatever the input
+    (bf16 under autocast). ``train=False`` normalises with the moving
+    statistics. ``train=True`` normalises with the batch mean and the
+    *biased* batch variance (`jnp.var`), and returns them detached for the
+    loop's moving-average update; the buffers are never touched here
+    (`nn.BatchNorm2d`'s own update uses the unbiased variance and the other
+    momentum convention)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPSILON)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, BatchStats]:  # type: ignore[override]
+        x = x.to(self.weight.dtype)
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
             return y, None
-        x = x.to(self.weight.dtype)  # float32 also under bf16 autocast
         var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         shape = (1, -1, 1, 1)
         inv = torch.rsqrt(var + self.eps)
@@ -168,10 +309,14 @@ class NMP(nn.Module):
         self.onset_out = SameConv2d(fo + 1, 1, (3, 3))
         self.eval()
 
-    def frontend(self, audio: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, Dict[str, BatchStats]]:
+    def frontend(
+        self, audio: torch.Tensor, train: bool = False, precision: str = "highest"
+    ) -> Tuple[torch.Tensor, Dict[str, BatchStats]]:
         """(b, AUDIO_N_SAMPLES) -> (harmonically stacked, normalized CQT,
-        NCHW (b, n_harmonics, n_frames, 264); {"bn_cqt": batch stats})."""
-        x = normalized_log(self.cqt(audio)).unsqueeze(1)  # (b, 1, t, n_bins)
+        NCHW (b, n_harmonics, n_frames, 264), float32; {"bn_cqt": batch
+        stats}), the CQT under ``precision``."""
+        with precision_scope(precision, audio.device.type):
+            x = normalized_log(self.cqt(audio).float()).unsqueeze(1)  # (b, 1, t, n_bins)
         x, stats = self.bn_cqt(x, train)
         stacked = harmonic_stack(
             x.permute(0, 2, 3, 1),
@@ -182,37 +327,54 @@ class NMP(nn.Module):
         return stacked.permute(0, 3, 1, 2).contiguous(), {"bn_cqt": stats}
 
     def forward_and_stats(
-        self, audio: torch.Tensor, train: bool
+        self,
+        audio: torch.Tensor,
+        train: bool,
+        precision: str = "highest",
+        head_precision: Optional[str] = None,
+        conv_impl: str = "conv",
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, BatchStats]]:
         """The JAX package's `nmp.forward`: (b, 43844) float32 at 22050 Hz ->
-        ({"onset": (b,t,88), "contour": (b,t,264), "note": (b,t,88)}, batch
-        stats per BN layer, None in eval). With ``no_contours`` "contour" is
-        the (b, t, 264 * n_filters_contour) hidden activation, frequency-major
-        as the JAX package's channel-last reshape gives it."""
-        x, stats = self.frontend(audio, train)
+        ({"onset": (b,t,88), "contour": (b,t,264), "note": (b,t,88)}, float32,
+        batch stats per BN layer, None in eval). With ``no_contours``
+        "contour" is the (b, t, 264 * n_filters_contour) hidden activation,
+        frequency-major as the JAX package's channel-last reshape gives it.
+        ``precision`` steers the CQT and, unless ``head_precision`` is given,
+        the heads (`precision_scope`); ``conv_impl`` picks the heads'
+        lowering (`resolve_conv_impl`)."""
+        conv, conv_contour = resolve_conv_impl(conv_impl)
+        x, stats = self.frontend(audio, train, precision)
 
-        c, stats["bn_contour"] = self.bn_contour(self.contour_conv(x), train)
-        c = torch.relu(c)
-        if self.config.no_contours:
-            contour = c.permute(0, 2, 3, 1).reshape(c.shape[0], c.shape[2], -1)
-            note_in = c
-        else:
-            note_in = torch.sigmoid(self.contour_out(c))  # (b, 1, t, 264)
-            contour = note_in[:, 0]
+        with precision_scope(precision if head_precision is None else head_precision, audio.device.type):
+            c, stats["bn_contour"] = self.bn_contour(conv_contour(x, self.contour_conv), train)
+            c = torch.relu(c)
+            if self.config.no_contours:
+                contour = c.permute(0, 2, 3, 1).reshape(c.shape[0], c.shape[2], -1)
+                note_in = c
+            else:
+                note_in = torch.sigmoid(conv(c, self.contour_out))  # (b, 1, t, 264)
+                contour = note_in[:, 0]
 
-        n = torch.relu(self.note_conv(note_in))
-        n_pre = torch.sigmoid(self.note_out(n))  # (b, 1, t, 88)
+            n = torch.relu(conv(note_in, self.note_conv))
+            n_pre = torch.sigmoid(conv(n, self.note_out))  # (b, 1, t, 88)
 
-        o, stats["bn_onset"] = self.bn_onset(self.onset_conv(x), train)
-        o = torch.cat([n_pre, torch.relu(o)], dim=1)  # note-pre first, then the onset stack
-        onset = torch.sigmoid(self.onset_out(o))
+            o, stats["bn_onset"] = self.bn_onset(conv(x, self.onset_conv), train)
+            o = torch.cat([n_pre, torch.relu(o)], dim=1)  # note-pre first, then the onset stack
+            onset = torch.sigmoid(conv(o, self.onset_out))
 
-        return {"onset": onset[:, 0], "contour": contour, "note": n_pre[:, 0]}, stats
+        outputs = {"onset": onset[:, 0], "contour": contour, "note": n_pre[:, 0]}
+        return {k: v.float() for k, v in outputs.items()}, stats
 
-    def forward(self, audio: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(
+        self,
+        audio: torch.Tensor,
+        precision: str = "highest",
+        head_precision: Optional[str] = None,
+        conv_impl: str = "conv",
+    ) -> Dict[str, torch.Tensor]:
         """Posteriorgrams, with batch statistics in train mode and the moving
         ones in eval mode (the default)."""
-        return self.forward_and_stats(audio, self.training)[0]
+        return self.forward_and_stats(audio, self.training, precision, head_precision, conv_impl)[0]
 
 
 @torch.no_grad()

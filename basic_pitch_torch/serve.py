@@ -25,7 +25,8 @@ throughput comes from batching their requests into one `transcribe_batch`.
   speaking a small JSON/MIDI API:
 
     GET  /healthz          -> {"status": "ok", decode_backend ("kernel" on
-         the card, "plain" on the CPU), pcm_transport ("raw"), ...}
+         the card, "plain" on the CPU), pcm_transport (the mode asked
+         for: "auto", "codec" or "raw"), ...}
     GET  /metrics          -> request/audio-second/latency counters
     POST /v1/transcribe    -> WAV body; query params mirror the CLI flags
          (onset_threshold, frame_threshold, minimum_note_length,
@@ -157,7 +158,9 @@ class TranscriptionService:
     ``max_batch``), groups them by decode-parameter set, and runs one
     `transcribe_batch` per group — so concurrent callers share device
     dispatches, which is where this pipeline's throughput lives. Only the
-    dispatch thread calls the transcriber.
+    dispatch thread calls the transcriber; when the queue is empty after a
+    batch it also lets the transcriber re-probe its PCM transport
+    (`refresh_transport`), so the probe never shares the card with a batch.
     """
 
     def __init__(
@@ -191,6 +194,11 @@ class TranscriptionService:
             "shed": 0,
             "timeouts": 0,
         }
+        # the transport re-probe (`StreamingTranscriber.refresh_transport`)
+        # runs here only while the queue is idle, never right after a batch
+        # that more requests wait behind
+        if hasattr(transcriber, "reprobe_after_calls"):
+            transcriber.reprobe_after_calls = False
         self._worker = threading.Thread(
             target=self._run, name="bp-serve-dispatch", daemon=True
         )
@@ -272,6 +280,14 @@ class TranscriptionService:
                 by_params.setdefault(key, []).append(item)
             for items in by_params.values():
                 self._dispatch_group(items)
+            refresh = getattr(self.transcriber, "refresh_transport", None)
+            if refresh is not None and self._queue.empty():
+                try:
+                    refresh(wait=True)
+                except Exception:  # noqa: BLE001 — the cached decision stays
+                    import logging
+
+                    logging.getLogger(__name__).exception("transport re-probe failed")
 
     def _dispatch_group(self, items: List[_Pending]) -> None:
         # drop requests whose caller already timed out (their event is set
@@ -646,6 +662,14 @@ class TranscriptionHandler(BaseHTTPRequestHandler):
             self._send_json(500, {"error": f"{type(err).__name__}: {err}"})
 
 
+class _Server(ThreadingHTTPServer):
+    # the listen backlog: socketserver's default of 5 drops the connections
+    # of a burst of concurrent callers beyond it, and their clients retry
+    # only after TCP's 1 s SYN timeout; the service's own queue (`max_queue`,
+    # 503 beyond it) is the admission limit, so accept the whole burst
+    request_queue_size = 128
+
+
 def make_server(
     service: TranscriptionService,
     host: str = "127.0.0.1",
@@ -654,7 +678,7 @@ def make_server(
 ) -> ThreadingHTTPServer:
     """Bind (port 0 picks a free one); caller runs serve_forever()."""
     hostmem.tune_host_allocator()  # warm-heap reuse of request PCM buffers
-    server = ThreadingHTTPServer((host, port), TranscriptionHandler)
+    server = _Server((host, port), TranscriptionHandler)
     server.service = service
     server.max_body_bytes = max_body_bytes
     return server

@@ -11,13 +11,14 @@ train state (`torch.save`).
 
 A batch is a dict of numpy arrays from `data/loader.py` (dense targets, or
 int16 audio with sparse COO targets when the loader runs with
-``device_targets``); `upload_batch` ships it to the device and
+``device_targets``); `pack_batch_audio` (or `packed_batches` around a batch
+stream) may replace int16 audio with its lossless codec form and trims the
+sparse targets for the wire; `upload_batch` ships it to the device and
 `materialize_batch` builds the dense float32 batch there.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import pathlib
@@ -74,7 +75,8 @@ def materialize_batch(batch: Batch) -> Batch:
 
 
 # ---------------------------------------------------------------------------
-# batch transport (raw audio; the JAX package's PCM codec is not ported)
+# batch transport: int16 audio raw or through the PCM codec, sparse targets
+# trimmed for the wire
 # ---------------------------------------------------------------------------
 
 _WIRE_MIN_BUCKET = 64
@@ -118,16 +120,55 @@ def _leaves(tree: Any) -> Iterator[Any]:
         yield tree
 
 
+def pack_batch_audio(batch: Batch, pcm_transport: str = "auto", device: "str | torch.device | None" = None) -> Batch:
+    """Host-side wire preparation: trim sparse-target padding off the wire
+    and, when the transport is the codec, replace int16 batch audio with its
+    packed form ("audio_packed": (PackedPCM, shape)). "auto" decides with
+    the serial cost model (the loader's host CPU is busy, so pack time adds
+    to the wall: `transport.resolve(serial=True)`, measured towards
+    ``device``, "cuda" when None); audio that does not pack smaller stays
+    raw. Run it where the loader runs (`packed_batches`)."""
+    from basic_pitch_torch.ops import pcmcodec, transport
+
+    batch = _trim_sparse_for_wire(batch)
+    audio = batch.get("audio")
+    if (
+        isinstance(audio, np.ndarray)
+        and audio.dtype == np.int16
+        and transport.check_mode(pcm_transport) != "raw"
+        and (pcm_transport == "codec" or transport.resolve("auto", device=device, serial=True) == "codec")
+    ):
+        packed = pcmcodec.pack(np.ascontiguousarray(audio).reshape(-1))
+        if packed.packed_bytes < audio.nbytes:
+            out = {k: v for k, v in batch.items() if k != "audio"}
+            out["audio_packed"] = (packed, audio.shape)
+            return out
+    return batch
+
+
+def packed_batches(
+    batches: Iterator[Batch], pcm_transport: str = "auto", device: "str | torch.device | None" = None
+) -> Iterator[Batch]:
+    """A batch iterator with `pack_batch_audio` run on a prefetch thread."""
+    from basic_pitch_torch.data.loader import _prefetch
+
+    return _prefetch((pack_batch_audio(b, pcm_transport, device) for b in batches), depth=2)
+
+
 def needs_upload(batch: Batch) -> bool:
-    """True when the batch still lies on the host (numpy leaves) and must go
-    through `upload_batch` before the step."""
-    return any(isinstance(leaf, np.ndarray) for leaf in _leaves(batch))
+    """True when the batch still lies on the host (numpy leaves, or codec
+    audio) and must go through `upload_batch` before the step."""
+    return "audio_packed" in batch or any(isinstance(leaf, np.ndarray) for leaf in _leaves(batch))
 
 
 def upload_batch(batch: Batch, device: torch.device) -> Tuple[Batch, int]:
-    """Ship one host batch (plain, stacked or wire-trimmed) to ``device``;
-    returns the device batch and the bytes that crossed the link. Trimmed
-    sparse targets re-pad on the device to their cap."""
+    """Ship one host batch (plain, stacked, wire-trimmed or codec-packed) to
+    ``device``; returns the device batch and the bytes that crossed the
+    link. Codec audio is reconstructed on the device as the exact float32
+    samples the raw path gives (`materialize_batch` passes float32 audio
+    through); trimmed sparse targets re-pad on the device to their cap."""
+    from basic_pitch_torch.ops import pcmcodec
+
     nbytes = 0
 
     def put(x: Any) -> Any:
@@ -139,7 +180,11 @@ def upload_batch(batch: Batch, device: torch.device) -> Tuple[Batch, int]:
 
     out: Batch = {}
     for key, value in batch.items():
-        if key == "targets_sparse":
+        if key == "audio_packed":
+            packed, shape = value
+            nbytes += packed.packed_bytes
+            out["audio"] = pcmcodec.decode_to_device(packed, int(np.prod(shape)), device).reshape(shape)
+        elif key == "targets_sparse":
             heads = {}
             for head, sp in value.items():
                 idx, val = put(sp["idx"]), put(sp["val"])
@@ -276,37 +321,11 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 # the steps
 # ---------------------------------------------------------------------------
 
-TRAIN_PRECISIONS = ("highest", "high", "default")
-
-
-@contextlib.contextmanager
-def precision_scope(precision: str) -> Iterator[None]:
-    """TF32 for cuBLAS and cuDNN on for "high" and off otherwise, for the
-    duration of one step; the global flags are restored afterwards, since
-    the transcriber pins them off and a training run in the same process
-    must not leave inference on TF32."""
-    if precision not in TRAIN_PRECISIONS:
-        raise ValueError(f"precision must be one of {TRAIN_PRECISIONS}, got {precision!r}")
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    tf32 = precision == "high"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-def _forward(
-    model: nmp.NMP, audio: torch.Tensor, precision: str, train: bool
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, nmp.BatchStats]]:
-    """The model forward; under "default" the matmuls and convs run in bf16
-    (autocast) and the outputs come back as float32 for the losses."""
-    if precision != "default":
-        return model.forward_and_stats(audio, train)
-    with torch.autocast(audio.device.type, dtype=torch.bfloat16):
-        outputs, stats = model.forward_and_stats(audio, train)
-    return {k: v.float() for k, v in outputs.items()}, stats
+# the model's precision names and scope (`nmp.precision_scope`); the step
+# holds the TF32 flags for its forward, backward and update, and the model
+# adds bf16 autocast to its forward under "default"
+TRAIN_PRECISIONS = nmp.PRECISIONS
+precision_scope = nmp.precision_scope
 
 
 def loss_and_stats(
@@ -316,7 +335,8 @@ def loss_and_stats(
     losses, batch statistics per BN layer). ``train`` selects train-mode
     batch norm and ``config.precision``; ``train=False`` is eval-mode batch
     norm in float32."""
-    outputs, stats = _forward(model, batch["audio"], config.precision if train else "highest", train)
+    # float32 outputs for the losses under every precision
+    outputs, stats = model.forward_and_stats(batch["audio"], train, precision=config.precision if train else "highest")
     total, per_head = losses.total_loss(
         outputs,
         batch["targets"],
@@ -384,7 +404,10 @@ def stack_batches(batches: Sequence[Batch]) -> Batch:
     """Stack k host batches leaf-wise on a NEW leading axis, for
     `multi_step`. Sparse heads wire-trimmed to different pow2 buckets are
     re-padded to the group's largest (sentinel rows are dropped at
-    materialization, so nothing changes)."""
+    materialization, so nothing changes). Audio must still be raw: stack,
+    then `pack_batch_audio`."""
+    if any("audio_packed" in b for b in batches):
+        raise ValueError("stack before pack_batch_audio, not after")
     first = batches[0]
     out: Batch = {"audio": np.stack([b["audio"] for b in batches])}
     if "targets" in first:
@@ -422,6 +445,8 @@ def grouped_batches(batches: Iterator[Batch], k: int) -> Iterator[Batch]:
 
 def is_stacked(batch: Batch) -> bool:
     """True for a `stack_batches` result (leading step axis on every leaf)."""
+    if "audio_packed" in batch:
+        return len(batch["audio_packed"][1]) == 3
     audio = batch.get("audio")
     return audio is not None and audio.ndim == 3
 

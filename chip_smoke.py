@@ -8,24 +8,44 @@ toolkit (nvcc):
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch/CUDA versions, and the build of
-     every hand-written kernel from csrc/ (nvcc, sm_90a);
-  2. each kernel against its plain PyTorch version on the card: seeded fuzz
-     cases, adversarial cases for the kernel's batched commit
-     (tests/torch_decode_cases.py, with its re-walk counter), the main path's own decode inputs (T = 18 176
-     frames, max_notes 16 384, melodia on), timed at that shape, a dense
-     seeded roll and an 8-voice tone mix at the same shape, and one hour of
-     sparse frames (T = 310 000); for each, the kernel's time with melodia
-     off and on and its counters (candidates, notes, melodia iterations,
-     re-walks);
+     every native source from csrc/, all compilers started together (nvcc
+     sm_90a for the kernels, g++ for the codec's host packer);
+  2. each kernel against its plain PyTorch version on the card. The greedy
+     decode: seeded fuzz cases, adversarial cases for the kernel's batched
+     commit (tests/torch_decode_cases.py, with its re-walk counter), the
+     main path's own decode inputs (T = 18 176 frames, max_notes 16 384,
+     melodia on), timed at that shape, a dense seeded roll and an 8-voice
+     tone mix at the same shape, and one hour of sparse frames (T = 310
+     000); for each, the kernel's time with melodia off and on and its
+     counters. The codec decode (`pcm_decode`), bit for bit against its
+     plain version and pcm / 32768: fixed orders 1-3, LPC and the default
+     mode, width ladders reaching every k of KSET, int16 extremes, the LPC
+     fuzz, lengths from 1 sample to one 44.1 kHz piece; its time against the
+     plain version, the pinned copy of the raw int16 bytes and its bound (the
+     bytes the kernel touches) at a full 128-window piece that the codec path
+     decodes (the 10 min recording's last chunk, ~1.39x), in its default mode
+     and forced to LPC, and at a noisy full chunk that the path sends raw;
   3. the main path at full width: StreamingTranscriber(device="cuda",
      windows_per_chunk=128) with the shipped weights transcribes ~60 s
      recordings (22.05 kHz float32, 44.1 kHz int16, and a batch of 4); the
      kernel must launch once per recording, the host fallback must never
      fire, and the synthesised notes must come back; then the 8-voice tone
-     mix, and where one recording's wall goes for it and a sparse one;
+     mix, and where one recording's wall goes for it and a sparse one. Then
+     the transcriber's settings: the upload + model stage for each
+     head_precision (highest, high, default) and conv_impl (conv, im2col,
+     toeplitz:24, mxu:24), with the posteriorgram difference and the event
+     churn against highest/conv on the 8-voice mix (the float32 lowerings
+     held to 1e-4 and the one-flip rule); compute_group 1 against 2 on a
+     10 min recording of three chunks (ms per chunk; posteriorgrams within
+     5e-3, events by the one-flip rule); and the raw, codec and auto
+     transports on int16 60 s and 10 min recordings (events identical,
+     bytes uploaded, wall, transport.report()); the codec-fed path must
+     launch both kernels, and forced codec must raise when its kernel
+     cannot be built;
   4. posteriorgrams on the card against the port on the CPU within 1e-4 on
-     the tests' golden audio, which shows that TF32 is off (a run with TF32
-     on is printed beside it as the control);
+     the tests' golden audio with the process-wide TF32 flags turned on,
+     which shows that the "highest" stages keep TF32 off (a transcriber at
+     precision="high" is the control, which must break the bound);
   5. the serving surfaces at full width with the shipped weights: the HTTP
      server (8 concurrent 30 s requests whose events must equal
      `transcribe` on the card, csv and midi bodies, a chunked /v1/stream
@@ -33,21 +53,25 @@ Phases, each fatal on failure:
      against `predict_and_save_streaming` (the one-flip rule, posteriorgrams
      within 1e-4), the predict CLI in a subprocess and the stream CLI; the
      kernel must launch on every path that decodes on the card, and never
-     on the windowed `predict` path, which decodes on the host;
+     on the windowed `predict` path, which decodes on the host; then the
+     serve CLI in a subprocess with --pcm-transport auto --head-precision
+     high, answering two requests;
   6. training at full width on a synthetic corpus (8 + 2 tracks of 10 s,
      written with the port's own TFRecord writer): one train step from the
      shipped weights on 16 windows on the card and on the CPU (loss within
      1e-6 relative, each gradient within 1e-3 of its tensor's largest; the
      CPU in float64 beside it shows float32's own error, and a TF32 step is
-     the control that must break the bounds), step, forward and eval times
-     at batch 16 for each precision with windows/s and peak memory, the loss
-     falling over 5 steps, the train CLI in a subprocess for two epochs and
-     then in process for a third (it must resume), and the trained
-     checkpoint transcribed by the transcriber, its notes from the kernel
-     equal to the plain decoder's;
-  7. a JSON line listing every hand kernel with its launches on the paths
-     driven (their sum, the split beside it), its error against the plain
-     version and its times;
+     the control that must break the bounds), a step on the loader's targets
+     with random-walk PCM16 audio fed codec-packed (audio and targets
+     bit-equal to the raw batch on the card, the same loss within 1e-6), step, forward and eval times at batch 16 for each
+     precision with windows/s and peak memory, the loss falling over 5
+     steps, the train CLI in a subprocess for two epochs and then in process
+     for a third (it must resume), and the trained checkpoint transcribed by
+     the transcriber, its notes from the kernel equal to the plain
+     decoder's;
+  7. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
+     its launches on the paths driven (their sum, the split beside it), its
+     error against the plain version and its times;
   8. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
@@ -55,6 +79,7 @@ It exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import io
 import json
@@ -407,7 +432,7 @@ def serving_phase() -> dict:
 
     try:
         info = json.loads(urllib.request.urlopen(base + "/healthz", timeout=30).read())
-        if info["decode_backend"] != "kernel" or info["pcm_transport"] != "raw":
+        if info["decode_backend"] != "kernel" or info["pcm_transport"] != "auto":
             raise AssertionError(f"/healthz on the card says {info}")
         greedy_kernel.launches = 0
         m0 = service.snapshot_metrics()
@@ -564,6 +589,360 @@ def serving_phase() -> dict:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_cli_phase(smi: str) -> None:
+    """The serve CLI in a subprocess, started with --pcm-transport auto
+    --head-precision high, answering two requests (a sparse and an 8-voice
+    30 s PCM16 WAV; recall >= 0.8 on the sparse one) and reporting the mode
+    it was asked for on /healthz."""
+    import urllib.request
+
+    from basic_pitch_torch.utils import audio as audio_io
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "basic_pitch_torch.cli.serve", "--port", str(port),
+           "--pcm-transport", "auto", "--head-precision", "high", "--warmup", "5"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        info = None
+        while info is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                raise AssertionError(f"serve CLI did not come up:\n{proc.communicate(timeout=10)[0][-3000:]}")
+            try:
+                info = json.loads(urllib.request.urlopen(base + "/healthz", timeout=5).read())
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if info["pcm_transport"] != "auto" or info["decode_backend"] != "kernel":
+            raise AssertionError(f"serve CLI /healthz says {info}")
+        counts = []
+        for seed, voices in ((800, 1), (801, 8)):
+            y, notes = tone_mix(SR, 30.0, seed=seed, voices=voices)
+            buf = io.BytesIO()
+            audio_io.write_wav(buf, y, SR)
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(base + "/v1/transcribe", data=buf.getvalue()), timeout=120) as resp:
+                body = json.loads(resp.read())
+            wall = time.perf_counter() - t1
+            events = [(n["start_time_s"], n["end_time_s"], n["pitch_midi"]) for n in body["notes"]]
+            counts.append((len(events), recall(events, notes), wall))
+        if counts[0][1] < 0.8 or counts[1][0] == 0:
+            raise AssertionError(f"serve CLI answers: {counts}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    print(
+        f"serve CLI --pcm-transport auto --head-precision high [{smi}]: up in {up_s:.1f} s (subprocess, 5 s warm-up), "
+        f"/healthz {info}; sparse 30 s: {counts[0][0]} events, recall {counts[0][1]:.3f}, {counts[0][2] * 1e3:.1f} ms; "
+        f"8-voice 30 s: {counts[1][0]} events, {counts[1][2] * 1e3:.1f} ms"
+    )
+
+
+def width_ladder(order: int, widths: List[int], blocks: int = 80) -> np.ndarray:
+    """int16 blocks that alternate +a, -a, whose order-`order` residuals are
+    +-2**order * a: for each width k in `widths`, `blocks` blocks whose
+    residuals need exactly k bits (enough blocks that no group merges)."""
+    parts = []
+    for k in widths:
+        a = 0 if k == 2 else -(-(1 << (k - 2)) // (1 << order))
+        if (a << order) > (1 << (k - 1)) - 1 or a > 32767:
+            raise ValueError(f"width {k} is out of reach at order {order}")
+        parts.append(np.tile(np.array([a, -a], np.int16), 256 * blocks // 2))
+    return np.concatenate(parts)
+
+
+def codec_cases(piece: np.ndarray) -> List[Tuple[str, np.ndarray, dict]]:
+    """The pcm_decode cases: every fixed order, LPC and the default mode on
+    the JAX package's codec test signals, width ladders that reach every k
+    of KSET, int16 extremes, the adversarial LPC fuzz, and lengths from 256
+    samples to one 44.1 kHz piece of a 128-window chunk."""
+    rng = np.random.RandomState(7)
+    sine = (np.sin(np.arange(60000) * 0.07) * 18000).astype(np.int16)
+    signals = {
+        "random": (rng.randn(50000) * 4000).clip(-32768, 32767).astype(np.int16),
+        "extremes": np.tile(np.array([-32768, 32767, 0, -1], np.int16), 300),
+        "silence": np.zeros(4096, np.int16),
+        "sine": sine,
+        "mixed": np.concatenate([np.zeros(1000, np.int16), sine[:3000], (rng.randn(2000) * 30000).clip(-32768, 32767).astype(np.int16)]),
+        "tiny": np.array([5], np.int16),
+        "two_sines": (np.sin(np.arange(60000) * 0.031) * 12000 + np.sin(np.arange(60000) * 0.173) * 9000).astype(np.int16),
+    }
+    cases = []
+    for name, pcm in signals.items():
+        for kw in ({"order": 1}, {"order": 2}, {"order": 3}, {"mode": "lpc"}, {}):
+            cases.append((name, pcm, kw))
+    cases.append(("ladder k=2..17", width_ladder(1, list(range(2, 18))), {"order": 1}))
+    cases.append(("ladder k=5..19", width_ladder(3, list(range(5, 20))), {"order": 3}))
+    cases.append(("full-scale alternation", np.tile(np.array([-32768, 32767], np.int16), 20000), {}))
+    fuzz = np.random.RandomState(99)
+    for trial in range(12):
+        n = int(fuzz.randint(300, 20000))
+        kind = trial % 4
+        if kind == 0:
+            x = np.clip(np.sin(np.arange(n) * fuzz.uniform(0.005, 0.4)) * 50000, -32768, 32767)
+        elif kind == 1:
+            x = np.where(fuzz.randn(n) > 0, 32767, -32768)
+        elif kind == 2:
+            x = np.sin(np.arange(n) * 0.07) * 15000
+            x[fuzz.randint(0, n, 5)] = 32767
+        else:
+            x = np.sin(np.cumsum(np.linspace(0.001, 1.2, n))) * fuzz.uniform(1000, 32000)
+        for mode in (None, "lpc", "fixed"):
+            cases.append((f"lpc fuzz {trial} mode={mode}", x.astype(np.int16), {"mode": mode}))
+    for n in (256, 257, 1000, 44100):
+        cases.append((f"length {n}", piece[:n], {}))
+    cases.append((f"22.05 kHz piece ({len(piece)})", piece, {}))
+    cases.append((f"22.05 kHz piece ({len(piece)}), lpc", piece, {"mode": "lpc"}))
+    piece44 = np.concatenate([np.repeat(piece, 2), piece[:256]])
+    cases.append((f"44.1 kHz piece ({len(piece44)})", piece44, {}))
+    return cases
+
+
+def pcm_decode_bytes(packed: Any, n_out: int) -> int:
+    """The bytes pcm_decode must move for one piece: the group table, the
+    words of each group's real rows (not the bucket over-read, the quantized
+    tail or the zeroed slack of the wire), the real idx entries, the heads
+    (and LPC coefficients and shifts) of every block, and the float32
+    samples out."""
+    from basic_pitch_torch.ops import pcmcodec
+
+    rows = sum(g[2] for g in packed.groups)
+    words = sum(g[2] * pcmcodec.words_per_block(g[0], packed.order) for g in packed.groups)
+    side = packed.heads.nbytes + (packed.coeffs.nbytes + packed.shifts.nbytes if packed.coeffs is not None else 0)
+    return 16 * len(packed.groups) + 4 * words + 4 * rows + side + 4 * n_out
+
+
+def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
+    """pcm_decode against its plain version on the card, bit for bit, and
+    both against pcm / 32768; then the kernel's time against the plain
+    version, the pinned copy of the raw int16 bytes and its bound at
+    ``path_piece``, a full 128-window piece that the codec path decodes
+    (it packs smaller than raw), in its default mode and forced to LPC, and
+    at ``piece``, a full chunk of noisy audio that the path sends raw."""
+    import torch
+
+    from basic_pitch_torch.ops import pcmcodec
+
+    dev = torch.device("cuda")
+    before = pcmcodec.launches
+    widths = set()
+    max_err = 0.0
+    cases = codec_cases(piece)
+    for name, pcm, kw in cases:
+        packed = pcmcodec.pack(pcm, **kw)
+        widths |= {g[0] for g in packed.groups}
+        wire, layout = pcmcodec.to_wire(packed)
+        w_dev = torch.from_numpy(wire).to(dev)
+        out = pcmcodec.decode_wire(w_dev, layout, len(pcm))
+        ref = pcmcodec.decode_plain(w_dev, layout, len(pcm))
+        exact = torch.from_numpy(pcm.astype(np.float32) / np.float32(32768.0)).to(dev)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((out - ref).abs().max()) if len(pcm) else 0.0)
+        if not (torch.equal(out, ref) and torch.equal(out, exact)):
+            bad = int(torch.nonzero(out != exact)[0]) if not torch.equal(out, exact) else -1
+            raise AssertionError(f"pcm_decode [{name} {kw}]: kernel != plain or != pcm/32768 (first bad sample {bad})")
+        if len(pcm) >= 44100 or name.startswith("ladder"):
+            print(f"pcm_decode == plain == pcm/32768 [{name} {kw}]: {packed.mode} order {packed.order}, "
+                  f"widths {sorted(g[0] for g in packed.groups)}, {packed.packed_bytes} of {pcm.nbytes} bytes")
+    if pcmcodec.launches != before + len(cases):
+        raise AssertionError("decode_wire did not launch the kernel once per call")
+    if widths != set(pcmcodec.KSET):
+        raise AssertionError(f"the cases reached widths {sorted(widths)}, not every k of KSET")
+    print(f"pcm_decode: {len(cases)} cases bit-exact (fixed orders 1-3, lpc, default mode, every k of KSET, int16 extremes, lengths 1 .. {len(piece) * 2 + 256})")
+
+    # times at full 128-window pieces: the one the codec path decodes, in
+    # its default mode and forced to lpc, and the noisy one it sends raw
+    rows = {}
+    for name, pcm, mode in (("path", path_piece, None), ("path_lpc", path_piece, "lpc"), ("noisy_raw", piece, None)):
+        packed = pcmcodec.pack(pcm, mode=mode)
+        if name != "noisy_raw" and not packed.packed_bytes < pcm.nbytes:
+            raise AssertionError(f"pcm_decode [{name}]: {packed.packed_bytes} packed bytes, not fewer than raw {pcm.nbytes}")
+        wire, layout = pcmcodec.to_wire(packed)
+        w_dev = torch.from_numpy(wire).to(dev)
+        n = len(pcm)
+        kernel_ms = cuda_ms(lambda: pcmcodec.decode_wire(w_dev, layout, n), reps=20)
+        plain_ms = cuda_ms(lambda: pcmcodec.decode_plain(w_dev, layout, n), reps=2)
+        host_wire = torch.from_numpy(wire).pin_memory()
+        wire_copy_ms = cuda_ms(lambda: host_wire.to(dev, non_blocking=True), reps=20)
+        raw_host = torch.from_numpy(pcm).pin_memory()
+        raw_copy_ms = cuda_ms(lambda: raw_host.to(dev, non_blocking=True), reps=20)
+        # least time: the bytes the kernel must touch at the card's memory
+        # rate, against its integer work (~10 operations a sample fixed, ~25
+        # lpc) at the non-tensor rate, which is far below it
+        bytes_moved = pcm_decode_bytes(packed, n)
+        ops = (25 if packed.mode == "lpc" else 10) * n
+        bound_ms, bound_by = max((bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / FP32_OPS_PER_S * 1e3, "operations"))
+        rows[name] = dict(
+            mode=packed.mode, order=packed.order, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes_moved=bytes_moved, packed_bytes=packed.packed_bytes, wire_bytes=layout.nbytes,
+            wire_copy_ms=wire_copy_ms, raw_copy_ms=raw_copy_ms,
+        )
+        print(
+            f"pcm_decode [{name}: {n} samples, {packed.mode} order {packed.order}, {packed.packed_bytes} packed bytes "
+            f"against {pcm.nbytes} raw, {pcm.nbytes / packed.packed_bytes:.3f}x]: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} bytes touched of a "
+            f"{layout.nbytes}-byte wire, 3.35 TB/s); pinned copy of the wire {wire_copy_ms:.4f} ms, of the raw "
+            f"int16 piece {raw_copy_ms:.4f} ms"
+        )
+    return dict(rows["path"], lpc=rows["path_lpc"], noisy_raw=rows["noisy_raw"], max_abs_err=max_err)
+
+
+def event_churn(events: List[tuple], ref: List[tuple]) -> int:
+    """Events of either list with no exact (start, end, pitch) twin in the
+    other."""
+    a = {(e[0], e[1], e[2]) for e in events}
+    b = {(e[0], e[1], e[2]) for e in ref}
+    return len(a ^ b)
+
+
+def forward_ms(tr: Any, audio: np.ndarray, sr: int, reps: int) -> float:
+    """Median host-clock time of the transcriber's upload + model stage
+    (`_forward`, synchronised), after one untimed call."""
+    import torch
+
+    tr._forward(audio, sr)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._forward(audio, sr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def settings_phase(smi: str, poly_audio: np.ndarray, pcm60: np.ndarray, pcm10: np.ndarray) -> dict:
+    """The transcriber's settings at full width, W = 128 (see the module
+    docstring, phase 3). Returns the launches of the codec-fed path."""
+    import torch
+
+    from basic_pitch_torch import pipeline
+    from basic_pitch_torch.decode import greedy_kernel
+    from basic_pitch_torch.ops import pcmcodec, transport
+
+    t_phase = time.perf_counter()
+    # ---- head_precision x conv_impl on the 8-voice 60 s mix ----
+    ref_post = ref_events = None
+    for head in ("highest", "high", "default"):
+        for impl in ("conv", "im2col", "toeplitz:24", "mxu:24"):
+            tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, head_precision=head, conv_impl=impl)
+            ms = forward_ms(tr, poly_audio, SR, reps=5)
+            post = tr.posteriorgrams(poly_audio, SR)
+            events = tr.transcribe(poly_audio, SR)
+            if not all(np.isfinite(v).all() for v in post.values()) or post["note"].shape != (tr._geometry(poly_audio, SR)[3], 88):
+                raise AssertionError(f"[{head}, {impl}] posteriorgrams {[(k, v.shape) for k, v in post.items()]}")
+            if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+                raise AssertionError(f"[{head}, {impl}] left TF32 on")
+            if ref_post is None:
+                ref_post, ref_events = post, events
+            diff = max(float(np.abs(post[k] - ref_post[k]).max()) for k in post)
+            churn = event_churn(events, ref_events)
+            print(
+                f"model stage [head_precision {head}, conv_impl {impl}, {smi}]: upload + model {ms:.3f} ms per 60 s "
+                f"(median of 5); posteriorgram max diff vs highest/conv {diff:.3g}; {len(events)} events, churn "
+                f"{churn} of {len(ref_events)}"
+            )
+            if head == "highest":  # the lowerings compute the same convs in float32
+                if diff > 1e-4:
+                    raise AssertionError(f"conv_impl {impl} differs from conv by {diff} > 1e-4")
+                events_agree(events, ref_events)
+            del tr
+
+    # ---- compute_group 1 against 2 on the 10 min recording (3 chunks) ----
+    grouped = {}
+    for k in (1, 2):
+        tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, compute_group=k, pcm_transport="raw")
+        n_chunks = tr._geometry(pcm10, SR)[2]
+        ms = forward_ms(tr, pcm10, SR, reps=3)
+        grouped[k] = (ms, tr.posteriorgrams(pcm10, SR), tr.transcribe(pcm10, SR))
+        del tr
+    diff = max(float(np.abs(grouped[2][1][key] - grouped[1][1][key]).max()) for key in grouped[1][1])
+    matched = events_agree(grouped[2][2], grouped[1][2])
+    print(
+        f"compute_group [{smi}, 10 min int16, {n_chunks} chunks of 128 windows]: k=1 {grouped[1][0] / n_chunks:.3f} ms "
+        f"per chunk, k=2 {grouped[2][0] / n_chunks:.3f} ms per chunk (upload + model, median of 3); posteriorgram max "
+        f"diff {diff:.3g}; events {len(grouped[2][2])} vs {len(grouped[1][2])}, {matched} matched"
+    )
+    if n_chunks < 3 or diff > 5e-3:
+        raise AssertionError(f"compute_group: {n_chunks} chunks, posteriorgrams differ by {diff}")
+
+    # ---- forced codec with a kernel that cannot be built: it raises ----
+    import tempfile
+
+    from basic_pitch_torch import _build
+
+    def no_nvcc() -> str:
+        raise RuntimeError("nvcc not found (simulated)")
+
+    saved = (_build.BUILD_DIR, _build.nvcc_path, _build._loaded.pop("pcm_decode", None))
+    try:
+        with tempfile.TemporaryDirectory() as empty:
+            _build.BUILD_DIR, _build.nvcc_path = pathlib.Path(empty), no_nvcc
+            try:
+                pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, pcm_transport="codec")
+            except RuntimeError as exc:
+                print(f"forced codec without a buildable pcm_decode raises: {exc}")
+            else:
+                raise AssertionError("forced codec made a transcriber without its kernel")
+    finally:
+        _build.BUILD_DIR, _build.nvcc_path = saved[:2]
+        if saved[2] is not None:
+            _build._loaded["pcm_decode"] = saved[2]
+
+    # ---- transport: raw, codec and auto on int16 60 s and 10 min ----
+    launches = {"pcm_decode": 0, "greedy_decode": 0}
+    for name, pcm in (("60 s", pcm60), ("10 min", pcm10)):
+        by_mode = {}
+        for mode in ("raw", "codec", "auto"):
+            tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, pcm_transport=mode)
+            tr.transcribe(pcm, SR)  # the first call runs the probe under "auto"
+            tr.piece_upload_bytes.clear()
+            # counts from 0 just before each mode's runs; the codec-fed
+            # transcription is this slice's path
+            pcmcodec.launches = greedy_kernel.launches = 0
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                events = tr.transcribe(pcm, SR)
+                walls.append(time.perf_counter() - t0)
+            n_launches = pcmcodec.launches
+            if mode == "codec":
+                # a piece whose packed form is not smaller goes raw, as in
+                # the JAX package; every transcription here decodes some
+                launches["pcm_decode"] += pcmcodec.launches
+                launches["greedy_decode"] += greedy_kernel.launches
+                if pcmcodec.launches < 3 or greedy_kernel.launches != 3:
+                    raise AssertionError(f"codec path: {pcmcodec.launches} pcm_decode, {greedy_kernel.launches} greedy_decode launches")
+            by_mode[mode] = (events, tr.piece_upload_bytes["default"] // 3, float(np.median(walls)) * 1e3, n_launches)
+            tr.close()
+        n_chunks = tr._geometry(pcm, SR)[2]
+        for mode, (events, nbytes, wall, n_launches) in by_mode.items():
+            if events != by_mode["raw"][0]:
+                raise AssertionError(f"{name}: {mode} transport events differ from raw")
+            print(
+                f"transport [{name} int16, {mode}, {smi}]: {nbytes} bytes uploaded per transcription "
+                f"({by_mode['raw'][1] / nbytes:.3f}x fewer than raw), wall {wall:.1f} ms (median of 3), "
+                f"{len(events)} events, identical to raw; pieces through pcm_decode {n_launches / 3:g} of {n_chunks}"
+            )
+    print(f"transport.report(): {json.dumps(transport.report('cuda'))}")
+    print(f"settings phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 PRE_BN_BIASES = ("contour_conv/b", "onset_conv/b")  # zero gradient in exact arithmetic
 
 
@@ -679,6 +1058,40 @@ def training_phase(smi: str) -> dict:
         if not bad_tf32:
             raise AssertionError("the TF32 control step stayed inside the bounds: the check cannot tell")
         print(f"TF32 control breaks the bounds as it must: {bad_tf32[:3]}")
+
+        # ---- a train step fed a codec-packed batch ----
+        from basic_pitch_torch.ops import pcmcodec
+
+        # the loader's targets with quiet random-walk PCM16 audio (the JAX
+        # package's codec train test, smaller steps): the corpus' loud noise
+        # floor does not pack smaller than raw once the wire pads each
+        # width's rows to a power of two, and audio that does not stays raw
+        walk = np.cumsum(np.random.RandomState(12).randint(-30, 30, host_batch["audio"].shape), axis=1)
+        quiet_batch = dict(host_batch, audio=np.clip(walk, -32768, 32767).astype(np.int16))
+        wire_batch = train_loop.pack_batch_audio(quiet_batch, "codec", cuda)
+        if "audio_packed" not in wire_batch:
+            raise AssertionError("the random-walk int16 batch did not pack smaller than raw")
+        pcmcodec.launches = 0
+        dev_codec, bytes_codec = train_loop.upload_batch(wire_batch, cuda)
+        codec_launches = pcmcodec.launches
+        dev_raw, bytes_raw = train_loop.upload_batch(quiet_batch, cuda)
+        mat_codec, mat_raw = train_loop.materialize_batch(dev_codec), train_loop.materialize_batch(dev_raw)
+        if codec_launches != 1 or not torch.equal(mat_codec["audio"], mat_raw["audio"]):
+            raise AssertionError(f"codec batch: {codec_launches} pcm_decode launches, audio equal {torch.equal(mat_codec['audio'], mat_raw['audio'])}")
+        for head in mat_raw["targets"]:
+            if not torch.equal(mat_codec["targets"][head], mat_raw["targets"][head]):
+                raise AssertionError(f"codec batch: {head} targets differ")
+        step_losses = []
+        for dev_batch_ in (dev_codec, dev_raw):
+            model = params_io.model_from_flat(flat).to(cuda)
+            step_losses.append(float(train_loop.train_step(model, train_loop.make_optimizer(model, config), dev_batch_, config)["loss"]))
+        if abs(step_losses[0] - step_losses[1]) > 1e-6 * abs(step_losses[1]):
+            raise AssertionError(f"train step on the codec batch {step_losses[0]} vs raw {step_losses[1]}")
+        print(
+            f"train step on a codec-packed batch (random-walk int16, the loader's targets, {wire_batch['audio_packed'][0].mode}): "
+            f"{bytes_codec} bytes uploaded against {bytes_raw} raw; audio and targets bit-equal on the card, "
+            f"loss {step_losses[0]:.8f} vs raw {step_losses[1]:.8f}; {codec_launches} pcm_decode launch"
+        )
 
         # ---- step times at batch 16 for each precision ----
         dev_batch = train_loop.upload_batch(host_batch, cuda)[0]
@@ -796,7 +1209,7 @@ def training_phase(smi: str) -> dict:
             raise AssertionError(f"the trained checkpoint's transcriptions launched the kernel {launches} times")
         print(f"trained checkpoint transcribed: {[len(e) for e in events]} events, {launches} kernel launches, max amp err {max_err:.3g}")
     print(f"training phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"trained_checkpoint": launches}
+    return {"trained_checkpoint": launches}, codec_launches
 
 
 def main() -> int:
@@ -808,6 +1221,7 @@ def main() -> int:
 
     from basic_pitch_torch import _build
     from basic_pitch_torch import pipeline
+    from basic_pitch_torch.ops import transport
     from basic_pitch_torch.decode import device as device_decode
     from basic_pitch_torch.decode import greedy_kernel
 
@@ -821,10 +1235,20 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    # every native source at once: one compiler process each
     t0 = time.perf_counter()
-    _build.load("greedy_decode")
-    print(f"built greedy_decode ({_build.library_path('greedy_decode').name}) in {time.perf_counter() - t0:.2f} s")
+    names = ("greedy_decode", "pcm_decode", "pcm_pack")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for name, path in zip(names, pool.map(_build.build, names)):
+            print(f"built {name} ({path.name})")
+    for name in names:
+        _build.load(name)
+    print(f"built {', '.join(names)} in parallel in {time.perf_counter() - t0:.2f} s")
     dev = torch.device("cuda")
+    # the int16 recordings of phases 2 and 3: 60 s (one 128-window chunk,
+    # 37 windows real) and 10 min (three chunks)
+    pcm60 = np.round(tone_mix(SR, 60.0, seed=102)[0] * 32767).astype(np.int16)
+    pcm10 = np.round(tone_mix(SR, 600.0, seed=103)[0] * 32767).astype(np.int16)
 
     # ---------------- phase 2: kernel against plain on the card ----------------
     max_err = 0.0
@@ -877,6 +1301,13 @@ def main() -> int:
         )[3]
         count, ovf, iters, rewalks = meta.cpu().tolist()
         print(f"kernel counters [{name}]: {count} notes, overflow {ovf}, {iters} melodia iterations, {rewalks} re-walks")
+
+    # pcm_decode: the 10 min recording's pieces are full 128-window chunks;
+    # the last (180 s real of 210) packs smaller than raw and the codec path
+    # decodes it, the first is noisy audio that packs larger and goes raw
+    chunk_len = 128 * pipeline.HOP + pipeline.OVERLAP
+    last_lo = 2 * 128 * pipeline.HOP - pipeline.OVERLAP // 2
+    codec_row = codec_kernel_phase(pcm10[:chunk_len], pipeline._padded_slice(pcm10, last_lo, last_lo + chunk_len))
 
     tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128)
     main_audio, main_notes = tone_mix(SR, 60.0, seed=100)
@@ -975,6 +1406,7 @@ def main() -> int:
     # ---------------- phase 3: the main path at full width ----------------
     warm, _ = tone_mix(SR, 10.0, seed=99)
     tr.transcribe(warm, SR)  # first-call set-up (cuDNN, allocator) outside the timed run
+    print(f"transport probe (pcm_transport='auto'): {json.dumps(transport.probe('cuda'))}")
     recordings = [("22.05k float32", main_audio, SR, main_notes)]
     y44, notes44 = tone_mix(2 * SR, 60.0, seed=101)
     recordings.append(("44.1k int16", np.round(y44 * 32767).astype(np.int16), 2 * SR, notes44))
@@ -1030,6 +1462,9 @@ def main() -> int:
         stages = breakdown(tr, pipeline, audio, SR, reps=5)
         print(f"stage breakdown [{name}, mean of 5]: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in stages.items()))
 
+    # the settings of this slice: precision and lowerings, grouping, transport
+    codec_path = settings_phase(smi, poly_audio, pcm60, pcm10)
+
     # ---------------- phase 4: card against CPU ----------------
     # the golden random-window audio of the tests (~4 s): no near-silent CQT
     # bins, whose float32 rounding the dB normalisation would amplify, so
@@ -1039,25 +1474,34 @@ def main() -> int:
     gpu2 = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=2)
     cpu2 = pipeline.StreamingTranscriber(device="cpu", windows_per_chunk=2)
     pc = cpu2.posteriorgrams(clip, SR)
-    pg = gpu2.posteriorgrams(clip, SR)
+    # the process-wide flags turned on must not reach a "highest" model stage
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        pt = gpu2.posteriorgrams(clip, SR)
+        pg = gpu2.posteriorgrams(clip, SR)
     finally:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # the control: TF32 asked for, front end and heads
+    pt = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=2, precision="high").posteriorgrams(clip, SR)
+    d_tf32 = {}
     for key in ("note", "onset", "contour"):
         d = float(np.abs(pg[key] - pc[key]).max())
-        d_tf32 = float(np.abs(pt[key] - pc[key]).max())
-        print(f"posteriorgram {key}: card vs cpu max abs diff {d:.3g} (with TF32 on: {d_tf32:.3g})")
+        d_tf32[key] = float(np.abs(pt[key] - pc[key]).max())
+        print(f"posteriorgram {key}: card vs cpu max abs diff {d:.3g} (precision='high', TF32: {d_tf32[key]:.3g})")
         if not d <= 1e-4:
             raise AssertionError(f"{key}: card and CPU differ by {d} > 1e-4")
+    if max(d_tf32.values()) <= 1e-4:
+        raise AssertionError("the TF32 control stayed within 1e-4 of the CPU: the check cannot tell")
 
     # ---------------- phase 5: the serving surfaces ----------------
-    by_path = {"main": main_launches, **serving_phase()}
+    by_path = {"main": main_launches, "codec_transport": codec_path["greedy_decode"], **serving_phase()}
+    serve_cli_phase(smi)
 
     # ---------------- phase 6: training ----------------
-    by_path.update(training_phase(smi))
+    trained, train_codec = training_phase(smi)
+    by_path.update(trained)
     print(f"greedy_decode launches by path: {json.dumps(by_path)}")
+    codec_by_path = {"codec_transport": codec_path["pcm_decode"], "train_codec_batch": train_codec}
+    print(f"pcm_decode launches by path: {json.dumps(codec_by_path)}")
 
     # ---------------- phase 7: kernels ----------------
     kernels = [{
@@ -1072,6 +1516,20 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "pcm_decode",
+        "route": "cuda",
+        "source": "basic_pitch_torch/csrc/pcm_decode.cu",
+        # no Pallas kernel: the JAX package decodes with XLA programs
+        "replaces": "basic_pitch_tpu/ops/pcmcodec.py:531",
+        "launches": sum(codec_by_path.values()),
+        "launches_by_path": codec_by_path,
+        "max_abs_err": codec_row["max_abs_err"],
+        "ms": codec_row["ms"],
+        "plain_ms": codec_row["plain_ms"],
+        "bound_ms": codec_row["bound_ms"],
+        "bound_by": codec_row["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

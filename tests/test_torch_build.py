@@ -6,6 +6,8 @@ import fnmatch
 import pathlib
 import tomllib
 
+import pytest
+
 from basic_pitch_torch import _build
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -64,3 +66,56 @@ def test_package_find_ships_every_subpackage():
         for p in _build.PACKAGE_DIR.rglob("__init__.py")
     }
     assert {"basic_pitch_torch.train", "basic_pitch_torch.data"} <= on_disk <= found
+
+
+NATIVE = ("greedy_decode", "pcm_decode", "pcm_pack")
+
+
+@pytest.mark.parametrize("name", NATIVE)
+def test_package_data_ships_every_native_source(name):
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = config["tool"]["setuptools"]["package-data"]["basic_pitch_torch"]
+    for path in _build.sources(name):
+        rel = path.relative_to(_build.PACKAGE_DIR).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+
+
+def test_codec_sources_and_compilers(tmp_path, monkeypatch):
+    """pcm_decode is a CUDA source built with nvcc, pcm_pack a host source
+    built with g++ and the JAX package's flags; a .cu wins over a .cpp of the
+    same name, and the flags are part of the library's name."""
+    assert [p.name for p in _build.sources("pcm_decode")] == ["pcm_decode.cu"]
+    assert [p.name for p in _build.sources("pcm_pack")] == ["pcm_pack.cpp"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cpp").write_text("int f() { return 1; }\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    host = _build.library_path("k")
+    monkeypatch.setattr(_build, "HOST_FLAGS", ("-O2", "-shared", "-fPIC"))
+    assert _build.library_path("k") != host
+    (csrc / "k.cu").write_text("int f() { return 1; }\n")
+    assert _build.source("k").name == "k.cu"
+
+
+def test_host_build_compiles_and_loads(tmp_path, monkeypatch):
+    """The g++ path end to end on a tiny source."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "tiny.cpp").write_text('extern "C" int tiny(int x) { return 3 * x; }\n')
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    lib = _build.load("tiny")
+    assert lib.tiny(14) == 42
+    assert _build.library_path("tiny").exists()
+
+
+def test_host_build_reports_a_missing_compiler(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "tiny.cpp").write_text("int f() { return 1; }\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        _build.build("tiny")

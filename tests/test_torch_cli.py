@@ -29,7 +29,7 @@ from torch_port_helpers import SR, melody, one_torch_thread  # noqa: F401
 # flags of the JAX parsers that the port leaves out, and why
 LEFT_OUT = {
     "predict": {"model_serialization"},  # the model-format readers are not ported yet
-    "serve": {"decode_backend", "pcm_transport", "head_precision"},  # the device fixes the first two
+    "serve": {"decode_backend"},  # the device fixes the decoder
     "stream": set(),
 }
 PARSERS = {"predict": (t_predict, j_predict), "serve": (t_serve, j_serve), "stream": (t_stream, j_stream)}
@@ -146,3 +146,42 @@ def test_serve_warm_transcribes_each_length():
 
     t_serve._warm(Recorder(), "1, 2.5,,")
     assert calls == [(np.int16, SR, SR), (np.int16, int(2.5 * SR), SR)]
+
+
+@pytest.mark.parametrize(
+    "argv,transport,head",
+    [([], "auto", "highest"), (["--pcm-transport", "codec", "--head-precision", "high"], "codec", "high"),
+     (["--pcm-transport", "raw", "--head-precision", "default"], "raw", "default")],
+)
+def test_serve_cli_passes_transport_and_head_precision(monkeypatch, argv, transport, head):
+    """--pcm-transport and --head-precision reach the transcriber (the JAX
+    server's flags, choices and defaults; tests/test_serve.py:197)."""
+    from basic_pitch_torch import pipeline, serve
+
+    seen = {}
+
+    class Transcriber:
+        device, decode_backend = "cpu", "plain"
+
+        def __init__(self, model_path, **kwargs):
+            seen.update(kwargs)
+            self.pcm_transport, self.head_precision = kwargs["pcm_transport"], kwargs["head_precision"]
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            seen["closed"] = True
+
+    monkeypatch.setattr(pipeline, "StreamingTranscriber", Transcriber)
+    monkeypatch.setattr(serve, "TranscriptionService", lambda tr, **kw: type("S", (), {"close": lambda self: None})())
+    monkeypatch.setattr(serve, "make_server", lambda *a, **kw: Server())
+    ns = t_serve.build_parser().parse_args(["--port", "0", *argv])
+    assert (ns.pcm_transport, ns.head_precision) == (transport, head)
+    t_serve.main(["--port", "0", "--warmup", "", "--device", "cpu", *argv])
+    assert seen["pcm_transport"] == transport and seen["head_precision"] == head and seen["closed"]
+    with pytest.raises(SystemExit):
+        t_serve.build_parser().parse_args(["--pcm-transport", "zip"])

@@ -270,3 +270,19 @@ def test_transcribe_batch_of_nothing_is_empty():
     assert jax_tr.transcribe_batch([]) == []
     assert port_tr.transcribe_batch([]) == []
     assert port_tr.transcribe_batch([], return_model_outputs=True) == []
+
+
+def test_predict_and_save_streaming_asks_for_auto_transport(port_model, wavs, tmp_path, monkeypatch):
+    """The batched path measures its transport, as the JAX package's does
+    (`inference.py:518` there): the transcriber is built with "auto"."""
+    seen = []
+    real = t_pipeline.StreamingTranscriber
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("pcm_transport"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(t_pipeline, "StreamingTranscriber", spy)
+    t_inference.predict_and_save_streaming([wavs["mono22"]], tmp_path, False, False, False, True, port_model, windows_per_chunk=1)
+    assert seen == ["auto"]
+    assert len(list(tmp_path.glob("*.csv"))) == 1

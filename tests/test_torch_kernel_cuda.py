@@ -131,3 +131,38 @@ def test_service_decodes_requests_with_the_kernel_on_card(cuda_device):
         assert events == expected and len(events) > 0
     finally:
         service.close()
+
+
+def _codec_signals():
+    rng = np.random.RandomState(7)
+    t = np.arange(60000)
+    return {
+        "random": (rng.randn(50000) * 4000).clip(-32768, 32767).astype(np.int16),
+        "extremes": np.tile(np.array([-32768, 32767, 0, -1], np.int16), 300),
+        "two_sines": (np.sin(t * 0.031) * 12000 + np.sin(t * 0.173) * 9000).astype(np.int16),
+        "hf_tonal": (np.sin(t[:20000] * 2.9) * 30000).astype(np.int16),
+        "tiny": np.array([5], np.int16),
+        "walk": np.cumsum(rng.randint(-300, 300, 300_000)).astype(np.int16),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"order": 1}, {"order": 2}, {"order": 3}, {"mode": "lpc"}, {}], ids=str)
+def test_pcm_decode_matches_plain_on_card(cuda_device, kw):
+    """The codec's decode kernel against its plain version on the same wire,
+    and both against pcm / 32768, bit for bit."""
+    from basic_pitch_torch.ops import pcmcodec
+
+    for name, pcm in _codec_signals().items():
+        packed = pcmcodec.pack(pcm, **kw)
+        wire, layout = pcmcodec.to_wire(packed)
+        w = torch.from_numpy(wire).to(cuda_device)
+        before = pcmcodec.launches
+        out = pcmcodec.decode_wire(w, layout, len(pcm))
+        assert pcmcodec.launches == before + 1
+        ref = pcmcodec.decode_plain(w, layout, len(pcm))
+        torch.cuda.synchronize()
+        exact = torch.from_numpy(pcm.astype(np.float32) / np.float32(32768.0)).to(cuda_device)
+        assert torch.equal(out, ref), name
+        assert torch.equal(out, exact), name
+        assert torch.equal(pcmcodec.decode_to_device(packed, len(pcm), cuda_device), exact), name

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from basic_pitch_torch import _build as t_build
 from basic_pitch_torch import constants as t_constants
 from basic_pitch_torch.data import loader as t_loader
 from basic_pitch_torch.data import proto as t_proto
@@ -405,7 +406,48 @@ def test_hostmem_copy_matches():
     assert t_hostmem.tune_host_allocator() == first  # idempotent
 
 
-CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py")
+def test_codec_constants_match():
+    from basic_pitch_torch.ops import pcmcodec as t_codec
+    from basic_pitch_tpu.ops import pcmcodec as j_codec
+
+    for name in ("BLOCK", "KSET", "_MIN_BUCKET", "_MERGE_MIN_ROWS", "_ORDERS", "LPC_ORDER", "_LPC_MAX_SHIFT",
+                 "_LPC_MARGIN", "_WORDS_SIG_BITS"):
+        assert getattr(t_codec, name) == getattr(j_codec, name), name
+    for order in (1, 2, 3, 8):
+        assert [t_codec.words_per_block(k, order) for k in t_codec.KSET] == [j_codec.words_per_block(k, order) for k in j_codec.KSET]
+    for n in list(range(0, 300)) + [1000, 4095, 4097, 123457, 2**20 + 3]:
+        assert t_codec._quantize_words(n) == j_codec._quantize_words(n), n
+        assert t_codec._bucket(n) == j_codec._bucket(n), n
+    assert t_nmp._IM2COL_MAX_PATCH_ELEMS == j_nmp._IM2COL_MAX_PATCH_ELEMS
+    assert t_nmp.PRECISIONS == tuple(j_loop._TRAIN_PRECISIONS)
+
+
+def _code_only(text: str) -> list:
+    """C++ source without comments or blank lines, whitespace-normalized."""
+    lines = []
+    for line in text.splitlines():
+        code = line.split("//", 1)[0].strip()
+        if code:
+            lines.append(" ".join(code.split()))
+    return lines
+
+
+def test_packer_copy_matches():
+    """csrc/pcm_pack.cpp holds the packer part of the JAX package's host
+    library (from `diff_residual` to the end) with the same code; only the
+    comments may differ."""
+    j_src = (REPO / "basic_pitch_tpu" / "native" / "bp_native.cpp").read_text()
+    t_src = (PORT / "csrc" / "pcm_pack.cpp").read_text()
+    start = "static inline int32_t diff_residual"
+    j_code = _code_only(j_src[j_src.index(start):])
+    t_code = _code_only(t_src[t_src.index(start):])
+    assert t_code == j_code
+    assert t_code[-1] == '}' and len(t_code) > 200
+    j_build = (REPO / "basic_pitch_tpu" / "native" / "__init__.py").read_text()
+    assert '["g++", ' + ", ".join(f'"{f}"' for f in t_build.HOST_FLAGS) + ', "-o"' in j_build
+
+
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py", "chip_serve_times.py")
 TRAINING_SLICE = ("train/losses.py", "train/loop.py", "train/visualize.py", "data/proto.py", "data/tfrecord.py",
                   "data/serialization.py", "data/loader.py", "cli/train.py")
 
@@ -414,9 +456,17 @@ def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / name for name in CHIP_SCRIPTS]
 
 
+SETTINGS_SLICE = ("ops/pcmcodec.py", "ops/transport.py", "models/nmp.py", "pipeline.py")
+
+
 def test_scans_cover_the_training_slice():
     scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
     assert set(TRAINING_SLICE) <= scanned
+
+
+def test_scans_cover_the_settings_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert set(SETTINGS_SLICE) <= scanned
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -446,7 +496,7 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'basic_pitch_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'basic_pitch_torch.pipeline' in sys.modules\n"
-        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE!r})\n"
+        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE!r})\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

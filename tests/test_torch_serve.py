@@ -89,7 +89,8 @@ def test_healthz_and_routes(server):
     base, _ = server
     status, info = _get(base, "/healthz")
     assert status == 200
-    assert info == {"status": "ok", "decode_backend": "plain", "pcm_transport": "raw", "windows_per_chunk": 4}
+    # the transcriber's default transport: measured per process
+    assert info == {"status": "ok", "decode_backend": "plain", "pcm_transport": "auto", "windows_per_chunk": 4}
     for path in ("/nope", "/v1/nope"):
         with pytest.raises(urllib.error.HTTPError) as err:
             _get(base, path)
@@ -354,6 +355,61 @@ def _status(base, path, body):
             return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as err:
         return err.code, dict(err.headers), err.read()
+
+
+def test_server_accepts_a_burst_of_connections():
+    """Sixteen callers connecting at once all get through at once: the
+    listen backlog holds them while the accept loop catches up (beyond it a
+    client waits out TCP's 1 s SYN timeout)."""
+    srv = serve.make_server(None, "127.0.0.1", 0)
+    socks = []
+    try:
+        for _ in range(16):  # nothing accepts yet: each one waits in the backlog
+            socks.append(socket.create_connection(srv.server_address[:2], timeout=0.5))
+    finally:
+        for s in socks:
+            s.close()
+        srv.server_close()
+    assert len(socks) == 16
+
+
+def test_service_reprobes_the_transport_only_while_idle():
+    """The service takes the transport re-probe off the transcriber's calls
+    and runs it on its dispatch thread when no request waits: not after a
+    batch that another request queued behind, but after the last one."""
+    calls = []
+    started, release = threading.Event(), threading.Event()
+
+    class Fake:
+        reprobe_after_calls = True
+
+        def transcribe_batch(self, recordings, **params):
+            calls.append(("batch", len(recordings)))
+            started.set()
+            release.wait(10)
+            return [[] for _ in recordings]
+
+        def refresh_transport(self, wait=False):
+            calls.append(("refresh", wait))
+
+    fake = Fake()
+    service = serve.TranscriptionService(fake, max_batch=8, max_wait_ms=1.0)
+    assert fake.reprobe_after_calls is False
+    first = threading.Thread(target=service.submit, args=(PCM[:1000], SR, {}))
+    first.start()
+    assert started.wait(10)
+    second = threading.Thread(target=service.submit, args=(PCM[:1000], SR, {}))
+    second.start()
+    deadline = time.monotonic() + 10
+    while service._queue.qsize() < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    release.set()
+    first.join(10)
+    second.join(10)
+    while len(calls) < 3 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    service.close()
+    assert calls == [("batch", 1), ("batch", 1), ("refresh", True)]
 
 
 def test_http_503_sheds_beyond_queue_capacity():

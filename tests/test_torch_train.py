@@ -490,6 +490,79 @@ def test_multi_step_equals_sequential_steps(sparse):
             assert torch.equal(state_a[key], state_b[key]), key
 
 
+def _walk_windows(rng, n=3):
+    """Windows of compressible PCM16 (a random walk; uniform noise rightly
+    stays raw), as tests/test_train.py's codec test makes them."""
+    windows = _annotation_like_windows(rng, n=n)
+    for w in windows:
+        walk = np.cumsum(rng.randint(-300, 300, constants.AUDIO_N_SAMPLES))
+        w["audio"] = np.clip(walk, -32768, 32767).astype(np.int16).astype(np.float32) / np.float32(32768.0)
+    return windows
+
+
+def test_codec_batch_equals_raw_batch_and_jax():
+    """`pack_batch_audio` + `upload_batch` on the codec: the device batch
+    equals the raw path's bit for bit, the sparse targets ride wire-trimmed,
+    the bytes counted are the packed ones, and the JAX package packs the same
+    batch to the same wire (tests/test_train.py:405-437 there)."""
+    windows = _walk_windows(np.random.RandomState(5))
+    dense = t_loader._collate(windows)
+    device = t_loader._collate_device(windows)
+    packed = t_loop.pack_batch_audio(device, pcm_transport="codec")
+    assert "audio_packed" in packed and "audio" not in packed and t_loop.needs_upload(packed)
+    ref = j_loop.pack_batch_audio(device, pcm_transport="codec")
+    np.testing.assert_array_equal(packed["audio_packed"][0].words, ref["audio_packed"][0].words)
+    assert packed["audio_packed"][1] == ref["audio_packed"][1]
+    for head, sp in packed["targets_sparse"].items():
+        assert sp["idx"].shape[1] <= device["targets_sparse"][head]["idx"].shape[1]
+    dev_batch, nbytes = t_loop.upload_batch(packed, CPU)
+    expected = packed["audio_packed"][0].packed_bytes + sum(
+        x.nbytes for k, v in packed.items() if k != "audio_packed" for x in t_loop._leaves(v) if isinstance(x, np.ndarray)
+    )
+    assert nbytes == expected and nbytes < 0.6 * sum(x.nbytes for x in t_loop._leaves(device))
+    mat = t_loop.materialize_batch(dev_batch)
+    raw = t_loop.materialize_batch(t_loop.upload_batch(device, CPU)[0])
+    assert mat["audio"].dtype == torch.float32 and torch.equal(mat["audio"], raw["audio"])
+    np.testing.assert_array_equal(mat["audio"].numpy(), dense["audio"])
+    for head in ("onset", "note", "contour"):
+        assert torch.equal(mat["targets"][head], raw["targets"][head])
+    # "raw" passes the audio through; "auto" measures (raw on this CPU, where
+    # a host copy is far cheaper than packing)
+    assert "audio" in t_loop.pack_batch_audio(device, pcm_transport="raw")
+    with pytest.raises(ValueError, match="pcm_transport"):
+        t_loop.pack_batch_audio(device, pcm_transport="zip")
+    wired = list(t_loop.packed_batches(iter([device, device]), "codec", CPU))
+    assert len(wired) == 2 and all("audio_packed" in b for b in wired)
+
+
+def test_train_step_on_codec_batch_equals_raw():
+    """A step on the codec batch equals one on the raw batch bit for bit, and
+    a stacked group packs after stacking (tests/test_train.py:559 there)."""
+    rng = np.random.RandomState(6)
+    batches = [t_loader._collate_device(_walk_windows(rng, n=2)) for _ in range(2)]
+    config = t_loop.TrainConfig(learning_rate=1e-3)
+    flat = _jax_flat("default")
+    results = []
+    for wire in (batches[0], t_loop.pack_batch_audio(batches[0], "codec")):
+        model = t_params.model_from_flat(flat)
+        loss = t_loop.train_step(model, t_loop.make_optimizer(model, config), t_loop.upload_batch(wire, CPU)[0], config)["loss"]
+        results.append((float(loss), model.state_dict()))
+    assert results[0][0] == results[1][0]
+    for key, value in results[0][1].items():
+        assert torch.equal(value, results[1][1][key]), key
+
+    stacked = t_loop.pack_batch_audio(t_loop.stack_batches(batches), "codec")
+    assert t_loop.is_stacked(stacked) and stacked["audio_packed"][1][0] == 2
+    with pytest.raises(ValueError, match="stack before"):
+        t_loop.stack_batches([t_loop.pack_batch_audio(b, "codec") for b in batches])
+    seq_model = t_params.model_from_flat(flat)
+    seq_opt = t_loop.make_optimizer(seq_model, config)
+    seq = [float(t_loop.train_step(seq_model, seq_opt, t_loop.upload_batch(b, CPU)[0], config)["loss"]) for b in batches]
+    model = t_params.model_from_flat(flat)
+    metrics = t_loop.multi_step(model, t_loop.make_optimizer(model, config), t_loop.upload_batch(stacked, CPU)[0], config)
+    np.testing.assert_array_equal(metrics["loss"].numpy(), np.asarray(seq, np.float32))
+
+
 # ---------------------------------------------------------------------------
 # schedulers, precision, state
 # ---------------------------------------------------------------------------
