@@ -1,8 +1,10 @@
 """``basic-pitch-torch`` command-line interface: audio files to MIDI.
 
 The flags of `basic_pitch_tpu/cli/predict.py`, plus ``--device`` (``cuda``
-by default; ``cpu`` only when asked for). ``--model-serialization`` waits
-for the port's model-format readers.
+by default; ``cpu`` only when asked for). ``--model-path`` takes any
+serialization `inference.Model` sniffs; ``--model-serialization`` picks the
+ICASSP-2022 checkpoint in one of the reference's serializations
+(`basic_pitch_torch.build_icassp_2022_model_path`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--model-path",
         type=str,
         default=str(ICASSP_2022_WEIGHTS_PATH),
-        help="checkpoint to use: a flat-npz parameter archive",
+        help="checkpoint to use: a flat-npz parameter archive, a TF SavedModel "
+        "directory, an .onnx, a .tflite or a CoreML .mlpackage (each read without "
+        "its runtime)",
+    )
+    parser.add_argument(
+        "--model-serialization",
+        type=str,
+        choices=["tf", "coreml", "tflite", "onnx"],
+        help="If used, --model-path is ignored and the checkpoint for this "
+        "serialization is resolved instead ('tf' = the bundled npz weights; "
+        "coreml/tflite/onnx resolve through BASIC_PITCH_SAVED_MODELS or an "
+        "installed reference basic_pitch). Every format loads through the "
+        "port's own readers",
     )
     parser.add_argument(
         "--device",
@@ -70,7 +84,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.streaming and args.debug_file:
         parser.error("--debug-file is only supported without --streaming")
 
+    from basic_pitch_torch import FilenameSuffix, build_icassp_2022_model_path
     from basic_pitch_torch import inference, pipeline
+
+    model_path = args.model_path
+    if args.model_serialization:
+        model_path = build_icassp_2022_model_path(FilenameSuffix[args.model_serialization])
 
     inference.verify_output_dir(args.output_dir)
     for audio_path in args.audio_paths:
@@ -95,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 args.sonify_midi,
                 args.save_model_outputs,
                 args.save_note_events,
-                args.model_path,
+                model_path,
                 args.onset_threshold,
                 args.frame_threshold,
                 args.minimum_note_length,
@@ -115,7 +134,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 args.sonify_midi,
                 args.save_model_outputs,
                 args.save_note_events,
-                args.model_path,
+                model_path,
                 args.onset_threshold,
                 args.frame_threshold,
                 args.minimum_note_length,

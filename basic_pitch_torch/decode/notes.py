@@ -283,3 +283,53 @@ def model_frames_to_time(n_frames: int) -> np.ndarray:
         constants.ANNOT_N_FRAMES - (constants.AUDIO_N_SAMPLES / constants.FFT_HOP)
     ) + MAGIC_ALIGNMENT_OFFSET
     return raw - window_offset * window_numbers
+
+
+# ---------------------------------------------------------------------------
+# reference-named aliases: code ported from the reference package calls these
+# exact names (its `basic_pitch/note_creation.py:182,289,360`)
+# ---------------------------------------------------------------------------
+
+
+def get_infered_onsets(
+    onsets: np.ndarray, frames: np.ndarray, n_diff: int = 2
+) -> np.ndarray:
+    """Reference name for `infer_onsets_from_frames` (note the reference's
+    spelling), same argument order and semantics."""
+    return infer_onsets_from_frames(onsets, frames, n_diff)
+
+
+def get_pitch_bends(
+    contours: np.ndarray,
+    note_events: List[FrameNote],
+    n_bins_tolerance: int = 25,
+) -> List[Tuple[int, int, int, float, Optional[List[int]]]]:
+    """Reference name for `extract_pitch_bends` (`note_creation.py:182`)."""
+    return extract_pitch_bends(contours, note_events, n_bins_tolerance)
+
+
+def output_to_notes_polyphonic(
+    frames: np.ndarray,
+    onsets: np.ndarray,
+    onset_thresh: float,
+    frame_thresh: float,
+    min_note_len: int,
+    infer_onsets: bool,
+    max_freq: Optional[float],
+    min_freq: Optional[float],
+    melodia_trick: bool = True,
+    energy_tol: int = DEFAULT_ENERGY_TOLERANCE,
+) -> List[FrameNote]:
+    """Reference-signature wrapper over `decode_note_events`
+    (`note_creation.py:360-371`): same positional order and defaults."""
+    config = DecodeConfig(
+        onset_threshold=onset_thresh,
+        frame_threshold=frame_thresh,
+        min_note_length=min_note_len,
+        infer_onsets=infer_onsets,
+        min_freq=min_freq,
+        max_freq=max_freq,
+        melodia_trick=melodia_trick,
+        energy_tolerance=energy_tol,
+    )
+    return decode_note_events(frames, onsets, config)

@@ -57,21 +57,6 @@ DEFAULT_MIDI_VELOCITY_SCALE = 127
 _MAX_DEVICE_BATCH = 128  # windows per model call
 
 
-def _checkpoint_format(path: pathlib.Path) -> Optional[str]:
-    """The name of a serialization the port cannot read yet, or None for
-    the flat npz checkpoint."""
-    suffix = path.suffix.lower()
-    if path.is_dir() and (path / "saved_model.pb").exists():
-        return "TF SavedModel"
-    if suffix in (".mlpackage", ".mlmodel") or (path / "Data" / "com.apple.CoreML").is_dir():
-        return "CoreML"
-    if suffix == ".tflite":
-        return "TFLite"
-    if suffix == ".onnx":
-        return "ONNX"
-    return None
-
-
 class Model:
     """The NMP model on one device, with batched prediction over windows.
 
@@ -84,10 +69,14 @@ class Model:
         device: "cuda" (the default, which raises when there is no GPU) or
             "cpu".
 
-    The JAX package's readers for the other serializations (TF SavedModel,
-    CoreML, TFLite, ONNX) are not ported yet; such a path raises a
-    ``ValueError`` that names its format. Numerics are float32: TF32 is
-    switched off as in `pipeline.StreamingTranscriber`.
+    A path may hold any of the reference's serializations: a TF SavedModel
+    directory, a CoreML ``.mlpackage`` / ``.mlmodel``, a ``.tflite``, an
+    ``.onnx`` or the flat npz. `_load_checkpoint` sniffs them in the JAX
+    package's order and reads each with its own runtime-free reader
+    (`models/{savedmodel,coreml_import,tflite_import,onnx_import}.py`); a
+    file that is not the expected serialization raises that reader's
+    ``ValueError``. Numerics are float32: TF32 is switched off as in
+    `pipeline.StreamingTranscriber`.
     """
 
     def __init__(
@@ -106,19 +95,28 @@ class Model:
         else:
             raise ValueError(
                 f"cannot load model from {model_or_path!r}: expected a checkpoint "
-                "path (.npz), a flat parameter dict or an nmp.NMP module"
+                "path (.npz, SavedModel, CoreML, TFLite or ONNX), a flat parameter "
+                "dict or an nmp.NMP module"
             )
         self.module = module.to(self.device).eval()
 
     @staticmethod
     def _load_checkpoint(path: PathLike) -> Dict[str, np.ndarray]:
+        """Format-sniffing loader over the four reference serializations and
+        the flat npz, in the order of the JAX package's `Model`: SavedModel
+        directory, CoreML, TFLite, ONNX, npz."""
+        from basic_pitch_torch.models import coreml_import, onnx_import, savedmodel, tflite_import
+
         p = pathlib.Path(path)
-        fmt = _checkpoint_format(p)
-        if fmt is not None:
-            raise ValueError(
-                f"{p}: {fmt} checkpoints are not readable by the PyTorch port yet; "
-                "pass a flat .npz checkpoint"
-            )
+        suffix = p.suffix.lower()
+        if savedmodel.looks_like_savedmodel(p):
+            return savedmodel.load_nmp_savedmodel(p)
+        if suffix in (".mlpackage", ".mlmodel") or coreml_import.looks_like_mlpackage(p):
+            return coreml_import.load_nmp_coreml(p)
+        if suffix == ".tflite" or tflite_import.looks_like_tflite(p):
+            return tflite_import.load_nmp_tflite(p)
+        if suffix == ".onnx" or onnx_import.looks_like_onnx(p):
+            return onnx_import.load_nmp_onnx(p)
         return params_io.load_flat(p)
 
     def predict(self, audio_windows: np.ndarray) -> Dict[str, np.ndarray]:

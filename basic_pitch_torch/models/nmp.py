@@ -55,6 +55,18 @@ from basic_pitch_torch.ops.spectral import normalized_log
 BN_EPSILON = 1e-3  # Keras BatchNormalization default
 BN_MOMENTUM = 0.99  # Keras: new = 0.99 * old + 0.01 * batch
 
+
+def identity_bn_stats(width: int) -> Dict[str, np.ndarray]:
+    """Batch-norm parameters that are exactly the identity in eval mode:
+    rsqrt(var + eps) == 1 when var = 1 - eps. The serialized-model readers
+    use them for the slots a format folds into the preceding conv."""
+    return {
+        "gamma": np.ones(width, np.float32),
+        "beta": np.zeros(width, np.float32),
+        "mean": np.zeros(width, np.float32),
+        "var": np.full(width, 1.0 - BN_EPSILON, np.float32),
+    }
+
 CONV_NAMES = ("contour_conv", "contour_out", "note_conv", "note_out", "onset_conv", "onset_out")
 BN_NAMES = ("bn_cqt", "bn_contour", "bn_onset")
 

@@ -14,7 +14,7 @@ reads, so checkpoints go both ways between the packages.
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -42,6 +42,40 @@ def load_flat(path: PathLike = ICASSP_2022_WEIGHTS_PATH) -> Dict[str, np.ndarray
 def save_params(path: PathLike, flat: Mapping[str, np.ndarray]) -> None:
     """Write a flat JAX-layout dict as the JAX package's ``.npz`` archive."""
     np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested {"layer": {"field": array}} tree as the flat
+    {"layer/field": array} dict, in the tree's own order (the JAX package's
+    `flatten_params`)."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            flat.update(flatten_params(value, prefix=f"{prefix}{key}/"))
+        else:
+            flat[f"{prefix}{key}"] = np.asarray(value)
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """The flat dict as the nested tree of numpy arrays the format writers
+    walk."""
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def flat_params(source: "Union[Mapping[str, Any], nmp.NMP]") -> Dict[str, np.ndarray]:
+    """The flat JAX-layout dict of an `NMP` (`to_jax_params` of its state),
+    of a flat dict, or of a nested tree."""
+    if isinstance(source, nmp.NMP):
+        return to_jax_params(source.state_dict())
+    return flatten_params(source)
 
 
 def config_from_params(flat: Mapping[str, np.ndarray]) -> nmp.ModelConfig:

@@ -193,7 +193,7 @@ def _native_pack(pcm: np.ndarray, order: int):
     return words, int(total), counts, idx, heads
 
 
-def pack_numpy(pcm: np.ndarray, order: int):
+def pack_numpy(pcm: np.ndarray, order: int) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray, np.ndarray]:
     """Pure-numpy reference packer (same wire format as the native one)."""
     nb = len(pcm) // BLOCK
     x = pcm.astype(np.int32).reshape(nb, BLOCK)
@@ -338,7 +338,9 @@ def lpc_analyze_numpy(pcm: np.ndarray, p: int = LPC_ORDER) -> "tuple[np.ndarray,
     return np.ascontiguousarray(c), s.astype(np.int8), bits
 
 
-def pack_numpy_lpc(pcm: np.ndarray, coeffs: np.ndarray, shifts: np.ndarray):
+def pack_numpy_lpc(
+    pcm: np.ndarray, coeffs: np.ndarray, shifts: np.ndarray
+) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray, np.ndarray]:
     """Pure-numpy LPC packer (same wire format as the native pack_pcm16_lpc)."""
     p = coeffs.shape[1]
     nb = len(pcm) // BLOCK

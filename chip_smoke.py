@@ -7,7 +7,9 @@ toolkit (nvcc):
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. the card's name and power limit, torch/CUDA versions, and the build of
+  1. the card's name and power limit, its SM clock and maximum SM clock and
+     the host's CPU model (also printed by the serving phase), torch/CUDA
+     versions, and the build of
      every native source from csrc/, all compilers started together (nvcc
      sm_90a for the kernels, g++ for the codec's host packer);
   2. each kernel against its plain PyTorch version on the card. The greedy
@@ -56,7 +58,20 @@ Phases, each fatal on failure:
      on the windowed `predict` path, which decodes on the host; then the
      serve CLI in a subprocess with --pcm-transport auto --head-precision
      high, answering two requests;
-  6. training at full width on a synthetic corpus (8 + 2 tracks of 10 s,
+  6. the model formats: the shipped weights written as nmp.onnx by the
+     port's writer and by `basic-pitch-torch-export --format onnx --device
+     cuda` (rc 0, the same bytes, its round-trip deviation printed); the
+     ONNX file loaded by inference.Model's sniffing, its posteriorgrams on
+     the 60 s recording within FOLD_ATOL (1e-5) of the npz model's with
+     TF32 off; the kernel against the plain decoder on that model's decode
+     inputs; predict_and_save_streaming with the ONNX-loaded Model (one
+     kernel launch, counted under "formats"; events equal to the npz
+     model's or within the one-flip rule); the exported graph through the
+     torch evaluator within 1e-4 of the NMP on 16 noise windows, both timed
+     (CUDA events, median of 5); and `--format savedmodel` with tensorflow
+     unimportable exiting 2 with the JAX package's message. SavedModel and
+     TFLite files reach the card once such a file is in the repository;
+  7. training at full width on a synthetic corpus (8 + 2 tracks of 10 s,
      written with the port's own TFRecord writer): one train step from the
      shipped weights on 16 windows on the card and on the CPU (loss within
      1e-6 relative, each gradient within 1e-3 of its tensor's largest; the
@@ -69,10 +84,10 @@ Phases, each fatal on failure:
      for a third (it must resume), and the trained checkpoint transcribed by
      the transcriber, its notes from the kernel equal to the plain
      decoder's;
-  7. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
+  8. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
      its launches on the paths driven (their sum, the split beside it), its
      error against the plain version and its times;
-  8. as the last line, {"ok": true, "device": {...}}.
+  9. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -191,6 +206,61 @@ def cuda_ms(fn: Callable[[], Any], reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_median_ms(fn: Callable[[], Any], reps: int) -> float:
+    """Median of ``reps`` calls, each timed alone with CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def clocks_and_host() -> str:
+    """The card's SM clock now and its maximum, and the host's CPU model:
+    what tells two runs' machines apart beside the card's name and power
+    limit."""
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return f"clocks.sm, clocks.max.sm: {clocks}; host CPU: {host_cpu()}"
+
+
+def host_cpu() -> str:
+    """The CPU model from /proc/cpuinfo's first processor (else lscpu's),
+    with the architecture, the logical CPU count and the family/model
+    numbers, which name the generation where the model name is missing."""
+    import os
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name")
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+            name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines() if ln.startswith("Model name:")), None)
+        except (OSError, subprocess.SubprocessError):
+            name = None
+    ids = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "CPU implementer", "CPU part") if k in info)
+    return f"{name or 'unknown'} ({platform.machine()}, {os.cpu_count()} logical CPUs{', ' + ids if ids else ''})"
 
 
 def stage_split(greedy_kernel: Any, inputs: Any, min_note_len: int, max_notes: int, max_iters: int, reps: int) -> dict:
@@ -401,6 +471,7 @@ def serving_phase() -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"serving phase on {smi}")
+    print(clocks_and_host())
     t_phase = time.perf_counter()
     launches = {}
 
@@ -586,6 +657,134 @@ def serving_phase() -> dict:
         raise AssertionError(f"stream CLI: {launches['stream_cli']} launches, recall {r_cli:.3f}")
     print(f"stream CLI (windows_per_chunk 16) on 20 s: {len(cli_events)} events, recall {r_cli:.3f}, {wall_stream_cli:.2f} s")
     print(f"serving phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def formats_phase(smi: str, main_audio: np.ndarray) -> int:
+    """The model formats on the card (see the module docstring, phase 6):
+    the shipped weights exported as ONNX by the port's writer and by
+    basic-pitch-torch-export, loaded back by inference.Model's sniffing,
+    transcribed through the greedy-decode kernel, and run by the torch
+    evaluator. Returns the kernel's launches on the format-loaded path (the
+    count set to 0 just before predict_and_save_streaming and read just
+    after)."""
+    import contextlib
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    import basic_pitch_torch.models as models_pkg
+    from basic_pitch_torch import inference, pipeline
+    from basic_pitch_torch.cli import export as export_cli
+    from basic_pitch_torch.decode import device as device_decode
+    from basic_pitch_torch.decode import greedy_kernel
+    from basic_pitch_torch.models import nmp, onnx_eval, onnx_export
+    from basic_pitch_torch.models import params as params_io
+    from basic_pitch_torch.utils import audio as audio_io
+
+    print(f"formats phase on {smi}")
+    t_phase = time.perf_counter()
+    heads = ("note", "onset", "contour")
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+        # ---- export: the writer, and the export CLI verifying on the card ----
+        onnx_path = tmp / "nmp.onnx"
+        onnx_export.export_onnx(params_io.load_flat(), onnx_path)
+        cli_out = io.StringIO()
+        with contextlib.redirect_stdout(cli_out):
+            rc = export_cli.main([str(tmp / "cli"), "--format", "onnx", "--device", "cuda"])
+        if rc != 0 or (tmp / "cli" / "nmp.onnx").read_bytes() != onnx_path.read_bytes():
+            raise AssertionError(f"basic-pitch-torch-export --format onnx --device cuda: rc {rc}\n{cli_out.getvalue()}")
+        deviation = next(line for line in cli_out.getvalue().splitlines() if "round-trip max deviation" in line)
+        print(f"basic-pitch-torch-export --format onnx --device cuda: rc 0, the writer's bytes; {deviation}")
+
+        # ---- forward: the ONNX-loaded model against the npz one, TF32 off ----
+        onnx_model = inference.Model(onnx_path, device="cuda")
+        npz_model = inference.Model(device="cuda")
+        tr_onnx = pipeline.StreamingTranscriber(onnx_model.module, windows_per_chunk=128, device="cuda")
+        tr_npz = pipeline.StreamingTranscriber(npz_model.module, windows_per_chunk=128, device="cuda")
+        pg_onnx = tr_onnx.posteriorgrams(main_audio, SR)
+        pg_npz = tr_npz.posteriorgrams(main_audio, SR)
+        d_fold = {k: float(np.abs(pg_onnx[k] - pg_npz[k]).max()) for k in heads}
+        print(f"ONNX-loaded model vs npz model on the 60 s recording (TF32 off): max abs diff {d_fold}")
+        if max(d_fold.values()) > 1e-5:
+            raise AssertionError(f"the ONNX round trip moved posteriorgrams by {max(d_fold.values())} > FOLD_ATOL 1e-5")
+
+        # ---- transcribe: kernel against plain on the ONNX model's inputs ----
+        with torch.inference_mode():
+            out, n_frames, n_chunks = tr_onnx._forward(main_audio, SR)
+            note, onset, _, floor = tr_onnx.decode_inputs(out, n_frames, n_chunks)
+        T = note.shape[0]
+        max_notes = max(16384, floor)
+        kw = dict(max_notes=max_notes, max_melodia_iters=2 * max_notes + 2 * T, valid_frames=n_frames)
+        out_k = greedy_kernel.decode_greedy(note, onset, 0.5, 0.3, 11, **kw)
+        ref_p = device_decode.decode_plain(note, onset, 0.5, 0.3, 11, **kw)
+        err = compare_decoded(out_k, ref_p)
+        print(f"kernel == plain [ONNX-loaded model, T={T}]: {int(out_k.n_notes)} notes, max amp err {err:.3g}")
+
+        wav = tmp / "recording.wav"
+        audio_io.write_wav(wav, main_audio, SR)
+        (tmp / "npz").mkdir()
+        (tmp / "onnx").mkdir()
+        inference.predict_and_save_streaming([wav], tmp / "npz", False, False, False, True, npz_model)
+        greedy_kernel.launches = 0
+        t0 = time.perf_counter()
+        inference.predict_and_save_streaming([wav], tmp / "onnx", False, False, False, True, onnx_model)
+        wall = time.perf_counter() - t0
+        launches = greedy_kernel.launches
+        if launches != 1:
+            raise AssertionError(f"the ONNX-loaded path launched the kernel {launches} times for one recording")
+        got = read_csv_events(tmp / "onnx" / "recording_basic_pitch.csv")
+        ref = read_csv_events(tmp / "npz" / "recording_basic_pitch.csv")
+        matched = events_agree(got, ref)
+        differ = len(set(got) ^ set(ref))
+        print(
+            f"predict_and_save_streaming with the ONNX-loaded Model: {len(got)} events (npz model {len(ref)}), "
+            f"{differ} differ exactly, {matched} matched by the one-flip rule; {launches} kernel launch; {wall * 1e3:.1f} ms"
+        )
+
+        # ---- the torch evaluator on the exported graph ----
+        graph = onnx_eval.OnnxGraph(onnx_path)
+        rng = np.random.default_rng(11)
+        x = torch.as_tensor(rng.standard_normal((16, 43844)) * 0.1, dtype=torch.float32, device="cuda")
+        got_eval = onnx_eval.run_model(graph, x, device="cuda")
+        with torch.inference_mode(), nmp.precision_scope("highest"):
+            want_nmp = onnx_model.module(x)
+        d_eval = max(float((got_eval[k] - want_nmp[k]).abs().max()) for k in heads)
+        if d_eval > 1e-4:
+            raise AssertionError(f"the torch evaluator and the NMP differ by {d_eval} > 1e-4")
+
+        def nmp_forward() -> None:
+            with torch.inference_mode(), nmp.precision_scope("highest"):
+                onnx_model.module(x)
+
+        eval_ms = cuda_median_ms(lambda: onnx_eval.run_model(graph, x, device="cuda"), reps=5)
+        nmp_ms = cuda_median_ms(nmp_forward, reps=5)
+        print(
+            f"torch evaluator vs NMP on 16 windows: max abs diff {d_eval:.3g}; per 16-window batch "
+            f"(CUDA events, median of 5) evaluator {eval_ms:.3f} ms, NMP {nmp_ms:.3f} ms [{smi}]"
+        )
+
+        # ---- without tensorflow the TF formats are refused ----
+        # `import tensorflow` fails inside, wherever tensorflow is installed;
+        # sys.modules and the package's attributes are restored after
+        err_out = io.StringIO()
+        with mock.patch.dict(sys.modules, {"tensorflow": None}), \
+                mock.patch.dict(vars(models_pkg)), contextlib.redirect_stderr(err_out):
+            sys.modules.pop("basic_pitch_torch.models.tf_export", None)
+            vars(models_pkg).pop("tf_export", None)
+            rc = export_cli.main([str(tmp / "tf"), "--format", "savedmodel", "--device", "cuda"])
+        message = "savedmodel/tflite export needs tensorflow; skipping ['savedmodel'] (onnx export is runtime-free)"
+        if rc != 2 or message not in err_out.getvalue():
+            raise AssertionError(f"--format savedmodel without tensorflow: rc {rc}, stderr {err_out.getvalue()!r}")
+        print(f"--format savedmodel without tensorflow: rc 2, {message!r}")
+    print(
+        "formats run on the card: onnx (the port's writer and basic-pitch-torch-export, read by inference.Model, "
+        "transcribed through the kernel, run by the torch evaluator) and npz; SavedModel and TFLite wait for such "
+        "a file in the repository"
+    )
+    print(f"formats phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -972,7 +1171,7 @@ def grad_violations(loss_rel: float, errors: dict) -> List[str]:
 
 def training_phase(smi: str) -> dict:
     """Training at full width on the card (see the module docstring, phase
-    6). Returns the greedy-decode kernel's launches on the trained
+    7). Returns the greedy-decode kernel's launches on the trained
     checkpoint's transcriptions."""
     import tempfile
 
@@ -1234,6 +1433,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    print(clocks_and_host())
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     # every native source at once: one compiler process each
     t0 = time.perf_counter()
@@ -1496,14 +1696,17 @@ def main() -> int:
     by_path = {"main": main_launches, "codec_transport": codec_path["greedy_decode"], **serving_phase()}
     serve_cli_phase(smi)
 
-    # ---------------- phase 6: training ----------------
+    # ---------------- phase 6: model formats ----------------
+    by_path["formats"] = formats_phase(smi, main_audio)
+
+    # ---------------- phase 7: training ----------------
     trained, train_codec = training_phase(smi)
     by_path.update(trained)
     print(f"greedy_decode launches by path: {json.dumps(by_path)}")
     codec_by_path = {"codec_transport": codec_path["pcm_decode"], "train_codec_batch": train_codec}
     print(f"pcm_decode launches by path: {json.dumps(codec_by_path)}")
 
-    # ---------------- phase 7: kernels ----------------
+    # ---------------- phase 8: kernels ----------------
     kernels = [{
         "name": "greedy_decode",
         "route": "cuda",
@@ -1534,7 +1737,7 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels}))
 
-    # ---------------- phase 8: result ----------------
+    # ---------------- phase 9: result ----------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -28,12 +28,13 @@ from torch_port_helpers import SR, melody, one_torch_thread  # noqa: F401
 
 # flags of the JAX parsers that the port leaves out, and why
 LEFT_OUT = {
-    "predict": {"model_serialization"},  # the model-format readers are not ported yet
+    "predict": set(),
     "serve": {"decode_backend"},  # the device fixes the decoder
     "stream": set(),
 }
 PARSERS = {"predict": (t_predict, j_predict), "serve": (t_serve, j_serve), "stream": (t_stream, j_stream)}
-PORT_MODULES = ("basic_pitch_torch.cli.predict", "basic_pitch_torch.cli.serve", "basic_pitch_torch.cli.stream")
+PORT_MODULES = ("basic_pitch_torch.cli.predict", "basic_pitch_torch.cli.serve", "basic_pitch_torch.cli.stream",
+                "basic_pitch_torch.cli.export")
 SUBPROCESS_ENV = dict(os.environ, OMP_NUM_THREADS="1")  # one intra-op thread, as in-process below
 
 

@@ -133,9 +133,11 @@ def test_model_predict_empty_batch(port_model):
     assert out["contour"].shape == (0, j_constants.ANNOT_N_FRAMES, j_constants.N_FREQ_BINS_CONTOURS)
 
 
-def test_model_sources(wavs, port_model):
+def test_model_sources(wavs, port_model, tmp_path):
     """A flat parameter dict and an NMP module load as the checkpoint does;
-    the serializations the port cannot read yet are named, not guessed."""
+    a missing path is routed by its name to its format's reader, which
+    raises as the JAX package's does (the corrupt-file cases are in
+    tests/test_torch_formats.py)."""
     windows, _, _ = t_inference.get_audio_input(wavs["mono22"], 7680, j_constants.WINDOW_HOP_SAMPLES)
     ref = port_model.predict(windows[:2])
     module = t_nmp.NMP()
@@ -144,12 +146,10 @@ def test_model_sources(wavs, port_model):
         out = t_inference.Model(source, device="cpu").predict(windows[:2])
         for key in ref:
             np.testing.assert_array_equal(out[key], ref[key])
-    with pytest.raises(ValueError, match="ONNX"):
-        t_inference.Model("nmp.onnx", device="cpu")
-    with pytest.raises(ValueError, match="TFLite"):
-        t_inference.Model("nmp.tflite", device="cpu")
-    with pytest.raises(ValueError, match="CoreML"):
-        t_inference.Model("nmp.mlpackage", device="cpu")
+    for name, error in (("nmp.onnx", FileNotFoundError), ("nmp.tflite", FileNotFoundError),
+                        ("nmp.mlpackage", ValueError), ("nmp.npz", FileNotFoundError)):
+        with pytest.raises(error, match="model.mlmodel" if error is ValueError else "No such file"):
+            t_inference.Model(tmp_path / name, device="cpu")
     with pytest.raises(ValueError, match="cannot load"):
         t_inference.Model(42, device="cpu")
 

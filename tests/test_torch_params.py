@@ -235,6 +235,106 @@ def test_host_decoder_copy_matches():
     assert j_notes.hz_to_midi(261.6) == t_notes.hz_to_midi(261.6)
 
 
+@pytest.mark.parametrize("alias", ["get_infered_onsets", "get_pitch_bends", "output_to_notes_polyphonic"])
+def test_reference_named_decoder_aliases_match(alias):
+    """The reference-named aliases of the host decoder: the JAX signature,
+    and on the same seeded posteriorgrams the same events (amplitudes within
+    2e-6) as the JAX package's."""
+    import inspect
+
+    assert str(inspect.signature(getattr(t_notes, alias))) == str(inspect.signature(getattr(j_notes, alias)))
+    rng = np.random.RandomState(14)
+    frames = (rng.rand(400, 88) ** 3).astype(np.float32)
+    onsets = (rng.rand(400, 88) ** 5).astype(np.float32)
+    contours = rng.rand(400, 264).astype(np.float32)
+    if alias == "get_infered_onsets":
+        np.testing.assert_allclose(t_notes.get_infered_onsets(onsets, frames), j_notes.get_infered_onsets(onsets, frames), atol=2e-6, rtol=0)
+        return
+    args = (frames, onsets, 0.5, 0.3, 11, True, 2000.0, 60.0)
+    notes_t = t_notes.output_to_notes_polyphonic(*args)
+    notes_j = j_notes.output_to_notes_polyphonic(*args)
+    assert len(notes_t) > 10
+    if alias == "get_pitch_bends":
+        notes_t = t_notes.get_pitch_bends(contours, notes_t)
+        notes_j = j_notes.get_pitch_bends(contours, notes_j)
+    assert [n[:3] + n[4:] for n in notes_t] == [n[:3] + n[4:] for n in notes_j]
+    np.testing.assert_allclose([n[3] for n in notes_t], [n[3] for n in notes_j], atol=2e-6, rtol=0)
+    for melodia in (False, True):
+        kw = dict(melodia_trick=melodia, energy_tol=5)
+        assert t_notes.output_to_notes_polyphonic(*args, **kw) == j_notes.output_to_notes_polyphonic(*args, **kw)
+
+
+def test_flat_and_nested_params_match_jax(nmp_params):
+    """The port's `flatten_params` is the JAX package's (keys, order,
+    values); `unflatten_params` inverts it; `flat_params` of an `NMP` is
+    its checkpoint."""
+    want = j_params.flatten_params(nmp_params)
+    got = t_params.flatten_params(nmp_params)
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    tree = t_params.unflatten_params(got)
+    assert list(tree) == list(nmp_params) and all(list(tree[k]) == list(nmp_params[k]) for k in tree)
+    assert list(t_params.flatten_params(tree)) == list(want)
+    flat = t_params.load_flat()
+    from_module = t_params.flat_params(t_params.model_from_flat(flat))
+    assert set(from_module) == set(flat)
+    for key in flat:
+        np.testing.assert_array_equal(from_module[key], flat[key])
+
+
+def test_format_tables_match():
+    """The copies of the format readers', writer's and evaluator's tables:
+    magic numbers, dtype and op codes, the shape tables that identify each
+    layer, the I/O names, the op set and the serialization selector."""
+    import basic_pitch_torch as t_root
+    import basic_pitch_tpu as j_root
+    from basic_pitch_torch.cli import export as t_export_cli
+    from basic_pitch_torch.cli import predict as t_predict_cli
+    from basic_pitch_torch.models import coreml_import as t_coreml
+    from basic_pitch_torch.models import onnx_eval as t_eval
+    from basic_pitch_torch.models import onnx_export as t_onnx_export
+    from basic_pitch_torch.models import onnx_import as t_onnx
+    from basic_pitch_torch.models import savedmodel as t_sm
+    from basic_pitch_torch.models import tflite_import as t_tflite
+    from basic_pitch_tpu.cli import export as j_export_cli
+    from basic_pitch_tpu.cli import predict as j_predict_cli
+    from basic_pitch_tpu.models import coreml_import as j_coreml
+    from basic_pitch_tpu.models import onnx_eval as j_eval
+    from basic_pitch_tpu.models import onnx_export as j_onnx_export
+    from basic_pitch_tpu.models import onnx_import as j_onnx
+    from basic_pitch_tpu.models import savedmodel as j_sm
+    from basic_pitch_tpu.models import tflite_import as j_tflite
+
+    pins = {
+        (t_sm, j_sm): ("TABLE_MAGIC", "_DTYPES", "_SUFFIX", "_BN_ROLES"),
+        (t_tflite, j_tflite): ("_TFLITE_MAGIC", "_FLOAT32", "_BUILTIN_ADD", "_BUILTIN_CONV_2D", "_BUILTIN_MUL", "_CONV_BY_SHAPE"),
+        (t_onnx, j_onnx): ("_FLOAT", "_CONV_BY_SHAPE"),
+        (t_coreml, j_coreml): ("_CONV_BY_SIZE", "_BLOB_SENTINEL", "_BLOB_DTYPE_F32"),
+        (t_onnx_export, j_onnx_export): (
+            "OPSET", "IR_VERSION", "INPUT_NAME", "OUTPUT_NAMES", "_FLOAT", "_INT64",
+            "_ATTR_FLOAT", "_ATTR_INT", "_ATTR_STRING", "_ATTR_INTS",
+        ),
+        (t_eval, j_eval): ("_FLOAT", "_INT64"),
+        (t_export_cli, j_export_cli): ("ALL_FORMATS",),
+    }
+    for (t_mod, j_mod), names in pins.items():
+        for name in names:
+            assert getattr(t_mod, name) == getattr(j_mod, name), f"{t_mod.__name__}.{name}"
+    assert set(t_eval._OPS) == set(j_eval._OPS)
+    assert t_onnx_export.PRODUCER == b"basic_pitch_tpu"
+    assert {s.name: s.value for s in t_root.FilenameSuffix} == {s.name: s.value for s in j_root.FilenameSuffix}
+    assert t_root.ICASSP_2022_MODEL_PATH == t_params.ICASSP_2022_WEIGHTS_PATH
+    for width in (1, 8, 32):
+        j_bn, t_bn = j_nmp.identity_bn_stats(width), t_nmp.identity_bn_stats(width)
+        assert set(j_bn) == set(t_bn)
+        for key in j_bn:
+            np.testing.assert_array_equal(t_bn[key], j_bn[key])
+            assert t_bn[key].dtype == j_bn[key].dtype
+    parser_opts = lambda parser: {a.dest: a.choices for a in parser._actions if a.choices}  # noqa: E731
+    assert parser_opts(t_predict_cli.build_parser())["model_serialization"] == parser_opts(j_predict_cli.build_parser())["model_serialization"]
+
+
 @pytest.mark.parametrize("multiple_pitch_bends", [False, True])
 def test_midi_writer_bytes_match(multiple_pitch_bends):
     rng = np.random.RandomState(9)
@@ -469,6 +569,35 @@ def test_scans_cover_the_settings_slice():
     assert set(SETTINGS_SLICE) <= scanned
 
 
+FORMATS_SLICE = ("models/savedmodel.py", "models/tflite_import.py", "models/onnx_import.py",
+                 "models/coreml_import.py", "models/onnx_export.py", "models/onnx_eval.py", "models/tf_export.py",
+                 "cli/export.py", "__init__.py")
+
+
+def test_scans_cover_the_formats_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert set(FORMATS_SLICE) <= scanned
+
+
+def test_importing_the_port_loads_no_tensorflow():
+    """The package root, `inference` (whose format readers are numpy) and
+    the export CLI load no tensorflow; only `models/tf_export.py` does,
+    and only the export CLI's SavedModel/TFLite branch imports it."""
+    code = (
+        "import sys\n"
+        "import basic_pitch_torch\n"
+        "assert 'torch' not in sys.modules\n"
+        "import basic_pitch_torch.inference, basic_pitch_torch.cli.export, basic_pitch_torch.cli.predict\n"
+        "from basic_pitch_torch.models import savedmodel, tflite_import, onnx_import, coreml_import, onnx_export, onnx_eval\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('tensorflow', 'jax', 'basic_pitch_tpu'))\n"
+        "assert not bad, bad[:5]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    tf_imports = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py") if "import tensorflow" in p.read_text()]
+    assert tf_imports == ["models/tf_export.py"]
+
+
 def test_no_jax_or_reference_package_imports_in_sources():
     offenders = []
     for path in _port_sources():
@@ -488,13 +617,34 @@ def test_no_jax_or_reference_package_imports_in_sources():
 
 
 def test_importing_the_port_loads_no_jax():
+    """Every port module imported: no module of the port asks for jax or
+    the JAX package, not even inside a try. An import hook records who asks.
+    tensorflow (imported by `models/tf_export.py` only) asks for jax itself
+    where jax is installed (`tensorflow/lite/python/util.py`, in a try):
+    that request is tensorflow's, and the only one allowed."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "ROOTS = ('jax', 'jaxlib', 'basic_pitch_tpu')\n"
+        "asked = []\n"
+        "class Recorder:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ROOTS:\n"
+        "            f = sys._getframe(1)\n"
+        "            while f is not None and f.f_globals.get('__name__', '').startswith(('importlib', '_frozen_importlib')):\n"
+        "                f = f.f_back\n"
+        "            who = f.f_globals.get('__name__', '?') if f is not None else '?'\n"
+        "            if who.split('.')[0] not in ROOTS:\n"
+        "                asked.append((who, name))\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Recorder())\n"
         "import basic_pitch_torch\n"
         "for m in pkgutil.walk_packages(basic_pitch_torch.__path__, 'basic_pitch_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'basic_pitch_tpu'))\n"
+        "bad = [a for a in asked if a[0].split('.')[0] != 'tensorflow']\n"
         "assert not bad, bad\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] == 'basic_pitch_tpu']\n"
+        "if 'tensorflow' not in sys.modules:\n"
+        "    assert not [k for k in sys.modules if k.split('.')[0] in ROOTS]\n"
         "assert 'basic_pitch_torch.pipeline' in sys.modules\n"
         f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE!r})\n"
     )
