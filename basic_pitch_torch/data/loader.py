@@ -55,8 +55,19 @@ def _dataset_files(
 ) -> List[str]:
     """Shard files for one split; with num_shards > 1 keep only this
     host's stable-hash partition (multi-host training: each process feeds
-    its own disjoint file subset)."""
-    pattern = os.path.join(datasets_base_path, dataset_name, "splits", split, "*tfrecord")
+    its own disjoint file subset).
+
+    The dataset's directory is ``dataset_name`` as the trainer names it
+    ("GuitarSet", "MedleyDB-Pitch", ...) or, where no such directory
+    exists, the name the ETL builders write ("guitarset",
+    "medleydb_pitch", ...), so shards built by ``basic-pitch-torch-download``
+    train as they are. The JAX loader reads only the first, and finds no
+    ETL-built shard on a case-sensitive filesystem."""
+    dataset_dir = os.path.join(datasets_base_path, dataset_name)
+    built_dir = os.path.join(datasets_base_path, dataset_name.lower().replace("-", "_"))
+    if not os.path.isdir(dataset_dir) and os.path.isdir(built_dir):
+        dataset_dir = built_dir
+    pattern = os.path.join(dataset_dir, "splits", split, "*tfrecord")
     files = sorted(glob.glob(pattern))
     if num_shards > 1:
         files = [

@@ -84,10 +84,26 @@ Phases, each fatal on failure:
      for a third (it must resume), and the trained checkpoint transcribed by
      the transcriber, its notes from the kernel equal to the plain
      decoder's;
-  8. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
+  8. the data, scoring and measurement path: a synthetic GuitarSet-layout
+     corpus (6 tone mixes of 10 s at 44.1 kHz with JAMS of their notes)
+     built by `basic-pitch-torch-download guitarset` in a subprocess (shard
+     count and wall printed), two train steps on the card from those shards
+     (`basic-pitch-torch-train --guitarset --device cuda`, rc 0, a
+     checkpoint written), `basic-pitch-torch-eval --device cuda` in
+     transcribe mode on one mix's WAV against the MIDI `predict_and_save`
+     wrote on the card from it (F1 must be 1.0) and against its JAMS
+     (recall >= 0.8); the MFU of the model stage (model only, one resident
+     128-window chunk, CUDA events) at highest/conv, highest/toeplitz:24
+     and high/conv against the H100's peak for each precision
+     (`utils/flops.py`); and a `torch.profiler` trace of one 60 s
+     transcribe (`utils/profiling.py`, written under
+     basic_pitch_torch/build/) with its top 5 CUDA kernels, the device's
+     busy share and the peak allocated memory; the trace must hold CUDA
+     kernels, greedy_decode among them (its launch counted as "measure");
+  9. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
      its launches on the paths driven (their sum, the split beside it), its
      error against the plain version and its times;
-  9. as the last line, {"ok": true, "device": {...}}.
+  10. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -114,11 +130,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same sheet)
 
 
-def tone_mix(sr: int, seconds: float, seed: int, noise: float = 0.01, voices: int = 1) -> Tuple[np.ndarray, List[Tuple[float, int]]]:
+def tone_mix(sr: int, seconds: float, seed: int, noise: float = 0.01, voices: int = 1, offsets: bool = False) -> Tuple[np.ndarray, List[tuple]]:
     """Seeded polyphonic mix of harmonic tones over a noise floor: `voices`
     independent streams of notes (each note 0.5-1.2 s, a new one every
     0.35-0.7 s), so about 1.5 x voices notes sound at once. Returns
-    (float32 audio, list of (onset seconds, MIDI pitch))."""
+    (float32 audio, list of (onset seconds, MIDI pitch)), or of (onset
+    seconds, offset seconds, MIDI pitch) with ``offsets``."""
     rng = np.random.RandomState(seed)
     n = int(seconds * sr)
     y = noise * rng.randn(n)
@@ -134,7 +151,7 @@ def tone_mix(sr: int, seconds: float, seed: int, noise: float = 0.01, voices: in
             tt = np.arange(i1 - i0) / sr
             env = np.exp(-1.5 * tt) * np.minimum(1.0, tt / 0.005)
             y[i0:i1] += gain * env * (np.sin(2 * np.pi * f0 * tt) + 0.4 * np.sin(4 * np.pi * f0 * tt))
-            notes.append((t_start, midi))
+            notes.append((t_start, min(t_start + dur, seconds), midi) if offsets else (t_start, midi))
             t_start += float(rng.uniform(0.35, 0.7))
     return y.astype(np.float32), notes
 
@@ -1411,6 +1428,243 @@ def training_phase(smi: str) -> dict:
     return {"trained_checkpoint": launches}, codec_launches
 
 
+def measure_corpus(root: pathlib.Path, n_tracks: int, seconds: float) -> List[Tuple[str, List[tuple]]]:
+    """A GuitarSet-layout corpus of seeded 44.1 kHz tone mixes (PCM16 WAV)
+    with JAMS files made from each mix's known notes: a note_midi
+    annotation and a pitch contour every 10 ms of each note. Returns
+    [(track id, [(onset s, offset s, MIDI pitch)])]."""
+    from basic_pitch_torch.utils import audio as audio_io
+
+    (root / "audio_mono-mic").mkdir(parents=True)
+    (root / "annotation").mkdir()
+    tracks = []
+    for i in range(n_tracks):
+        tid = f"{i:02d}_ToneMix{i}"
+        y, notes = tone_mix(2 * SR, seconds, seed=800 + i, voices=1 + i % 3, offsets=True)
+        audio_io.write_wav(root / "audio_mono-mic" / f"{tid}_mic.wav", y, 2 * SR)
+        contour = [(float(t), 440.0 * 2 ** ((m - 69) / 12)) for s, e, m in notes for t in np.arange(s, e, 0.01)]
+        jam = {"annotations": [
+            {"namespace": "note_midi",
+             "data": [{"time": s, "duration": e - s, "value": float(m), "confidence": None} for s, e, m in notes]},
+            {"namespace": "pitch_contour",
+             "data": [{"time": t, "duration": 0.0, "value": {"frequency": f, "index": 0, "voiced": True}}
+                      for t, f in contour]},
+        ]}
+        (root / "annotation" / f"{tid}.jams").write_text(json.dumps(jam))
+        tracks.append((tid, notes))
+    return tracks
+
+
+def trace_summary(path: pathlib.Path, region: str) -> dict:
+    """What a `profiling.trace` file says about the annotated ``region``:
+    the window (the region's host span), the CUDA kernels in it, their
+    device time (ms by name), the device's busy share (the union of kernel intervals
+    over the window) and the top 5 kernels by device time with their share
+    of all kernel time. Fails when the trace holds no CUDA kernel."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("name") == region and e.get("cat") == "user_annotation"]
+    if not spans:
+        raise AssertionError(f"the trace holds no {region!r} region")
+    lo = float(spans[0]["ts"])
+    hi = lo + float(spans[0]["dur"])
+    kernels = [e for e in events if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+               and lo <= float(e["ts"]) <= hi]
+    if not kernels:
+        raise AssertionError("the CUDA profiler recorded no CUDA kernel in the traced transcribe")
+    by_name: dict = {}
+    for e in kernels:
+        total, count = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + float(e["dur"]), count + 1)
+    kernel_us = sum(t for t, _ in by_name.values())
+    busy_us, end = 0.0, lo
+    for start, stop in sorted((float(e["ts"]), min(hi, float(e["ts"]) + float(e["dur"]))) for e in kernels):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {
+        "window_ms": (hi - lo) / 1e3,
+        "n_kernels": len(kernels),
+        "kernel_ms": kernel_us / 1e3,
+        "busy_share": busy_us / (hi - lo),
+        "by_name": {name: t / 1e3 for name, (t, _) in by_name.items()},
+        "top": [(name, t / 1e3, t / kernel_us, n) for name, (t, n) in top],
+    }
+
+
+def data_phase(smi: str) -> dict:
+    """The data -> score -> measure path on the card (see the module
+    docstring, phase 8). Returns each kernel's launches in the traced
+    transcribe."""
+    import tempfile
+
+    import torch
+
+    from basic_pitch_torch import inference, pipeline
+    from basic_pitch_torch.cli import eval as eval_cli
+    from basic_pitch_torch.data import serialization, tfrecord
+    from basic_pitch_torch.decode import greedy_kernel
+    from basic_pitch_torch.ops import pcmcodec
+    from basic_pitch_torch.utils import flops, profiling
+
+    print(f"data phase on {smi}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+
+        # ---- ETL: basic-pitch-torch-download in a subprocess (this process
+        # has CUDA initialised, and the build forks a pool) ----
+        n_tracks, seconds = 6, 10.0
+        tracks = measure_corpus(tmp / "corpus", n_tracks, seconds)
+        built = tmp / "built"
+        cmd = [sys.executable, "-m", "basic_pitch_torch.cli.download", "guitarset", "--source", str(tmp / "corpus"),
+               "--destination", str(built), "--timestamped", "false", "--batch-size", "2", "--num-workers", "2",
+               "--split-seed", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"basic-pitch-torch-download failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+        dataset_dir = built / "guitarset"
+        shards = {split: sorted((dataset_dir / "splits" / split).glob("*.tfrecord")) for split in ("train", "validation")}
+        if not shards["train"] or not shards["validation"]:
+            raise AssertionError(f"the build wrote no train or no validation shard: {shards}")
+        if not (dataset_dir / "_COMPLETE-t000.json").exists():
+            raise AssertionError("the build wrote no completion marker")
+        records = [r for paths in shards.values() for path in paths for r in tfrecord.read_tfrecords(path, verify=True)]
+        if len(records) != n_tracks:
+            raise AssertionError(f"the shards hold {len(records)} examples for {n_tracks} tracks")
+        for record in records:
+            parsed = serialization.parse_transcription_example(record)
+            if abs(len(parsed.audio) - seconds * SR) > 1 or not parsed.notes.sum() > 0 or not parsed.contours.sum() > 0:
+                raise AssertionError(f"{parsed.file_id}: {len(parsed.audio)} samples, notes {parsed.notes.sum()}, "
+                                     f"contours {parsed.contours.sum()}")
+        n_shards = sum(len(v) for v in shards.values())
+        print(
+            f"ETL [{smi}]: basic-pitch-torch-download guitarset --num-workers 2 --batch-size 2 built {n_shards} shards "
+            f"(train {len(shards['train'])}, validation {len(shards['validation'])}) holding {len(records)} examples "
+            f"from {n_tracks} tracks of {seconds:.0f} s at 44.1 kHz in {build_s:.2f} s (a subprocess, start-up included)"
+        )
+
+        # ---- two train steps on the card from those shards ----
+        out_dir = tmp / "trained"
+        cmd = [sys.executable, "-m", "basic_pitch_torch.cli.train", "--source", str(built), "--output", str(out_dir),
+               "--guitarset", "--device", "cuda", "-e", "1", "--steps-per-epoch", "2", "-v", "1", "-b", "4",
+               "--size-evaluation-callback-datasets", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        train_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI on the built shards failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+        checkpoints = sorted(out_dir.glob("*/checkpoints/model.00.npz"))
+        if len(checkpoints) != 1 or not (checkpoints[0].parent.parent / "model.best.npz").exists():
+            raise AssertionError(f"train CLI on the built shards wrote no checkpoint: {sorted(out_dir.rglob('*'))}")
+        epoch = [line.split("INFO:root:")[-1] for line in proc.stderr.splitlines() if "epoch 0:" in line and "train_loss=" in line]
+        if len(epoch) != 1:
+            raise AssertionError(f"train CLI on the built shards: {proc.stderr[-2000:]}")
+        print(f"train from the built shards [{smi}]: basic-pitch-torch-train --guitarset --device cuda -e 1 "
+              f"--steps-per-epoch 2 -b 4: rc 0 in {train_s:.2f} s (a subprocess, start-up included): {epoch[0]}; "
+              f"wrote {checkpoints[0].relative_to(out_dir)}")
+
+        # ---- evaluation on the card, transcribe mode (windowed predict,
+        # decoded on the host: no greedy_decode launch) ----
+        tid, notes = tracks[0]
+        wav = tmp / "corpus" / "audio_mono-mic" / f"{tid}_mic.wav"
+        jams = tmp / "corpus" / "annotation" / f"{tid}.jams"
+        predicted = tmp / "predicted"
+        predicted.mkdir()
+        greedy_kernel.launches = 0
+        inference.predict_and_save([wav], predicted, True, False, False, False, device="cuda")
+        midi = predicted / f"{wav.stem}_basic_pitch.mid"
+        scores = {}
+        for name, reference in (("self-consistency, the MIDI predict_and_save wrote", midi), ("the corpus's JAMS", jams)):
+            report = tmp / "report.json"
+            t0 = time.perf_counter()
+            rc = eval_cli.main([str(wav), str(reference), "--device", "cuda", "--json", str(report)])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"basic-pitch-torch-eval [{name}] returned {rc}")
+            onset = json.loads(report.read_text())["aggregate"]["onset"]
+            scores[name] = onset
+            print(f"basic-pitch-torch-eval --device cuda [{tid}, 10 s at 44.1 kHz, against {name}, {smi}]: "
+                  f"P {onset['precision']:.4f} R {onset['recall']:.4f} F1 {onset['f1']:.4f} "
+                  f"({onset['n_matched']}/{onset['n_reference']} ref, {onset['n_estimated']} est) in {wall:.2f} s")
+        self_score, jams_score = scores.values()
+        if self_score["f1"] != 1.0:
+            raise AssertionError(f"self-consistency F1 {self_score['f1']} != 1.0")
+        if jams_score["recall"] < 0.8 or jams_score["n_reference"] != len(notes):
+            raise AssertionError(f"recall against the JAMS {jams_score['recall']} < 0.8 ({jams_score})")
+        if greedy_kernel.launches != 0:
+            raise AssertionError(f"windowed predict launched the kernel {greedy_kernel.launches} times")
+
+    # ---- MFU of the model stage on one resident 128-window chunk ----
+    name = torch.cuda.get_device_name(0)
+    long_audio, _ = tone_mix(SR, 215.0, seed=900)
+    window_flops = flops.window_forward_flops()
+    for precision, conv_impl in (("highest", "conv"), ("highest", "toeplitz:24"), ("high", "conv")):
+        tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, precision=precision,
+                                           conv_impl=conv_impl, pcm_transport="raw")
+        piece = torch.from_numpy(pipeline._padded_slice(long_audio, 0, tr.chunk_len)).to("cuda")
+        windows = pipeline.unfold_windows(piece, tr.w)
+
+        def model_only() -> None:
+            tr.model(windows, tr.precision, tr.head_precision, tr.conv_impl)
+
+        with torch.inference_mode():
+            model_only()
+            model_only()
+            ms = cuda_median_ms(model_only, 10)
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError(f"the TF32 flags stayed on after the {precision} model stage")
+        total = tr.w * window_flops
+        report = flops.mfu_report(total, ms / 1e3, name)
+        peak = flops.peak_tflops(name, precision)
+        against = f"{100 * report['achieved_tflops'] / peak:.2f}% of the {precision} peak ({peak:g} TFLOP/s)" if peak else "no peak for this card"
+        print(f"MFU [{precision}/{conv_impl}, model only on one resident 128-window chunk, {smi}]: {ms:.3f} ms "
+              f"(CUDA events, median of 10) for {total / 1e9:.1f} GFLOP ({tr.w} x {window_flops} FLOP): {against}; "
+              f"mfu_report {json.dumps(report)}")
+
+    # ---- a trace of one 60 s transcribe ----
+    tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128)
+    audio, notes = tone_mix(SR, 60.0, seed=100)
+    tr.transcribe(audio, SR)  # first-call set-up outside the trace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bytes = profiling.device_memory_stats()["allocated_bytes.all.current"]
+    trace_dir = REPO / "basic_pitch_torch" / "build" / "measure_trace"
+    region = "transcribe 60 s"
+    greedy_kernel.launches = 0
+    pcmcodec.launches = 0
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.annotate(region):
+            events = tr.transcribe(audio, SR)
+    traced_s = time.perf_counter() - t0
+    launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
+    if launches["greedy_decode"] != 1:
+        raise AssertionError(f"the traced transcribe launched greedy_decode {launches['greedy_decode']} times")
+    if recall(events, notes) < 0.8:
+        raise AssertionError(f"the traced transcribe's recall is {recall(events, notes):.3f}")
+    peak_bytes = profiling.device_memory_stats()["allocated_bytes.all.peak"]
+    summary = trace_summary(trace_dir / profiling.TRACE_NAME, region)
+    decode_ms = [ms for k, ms in summary["by_name"].items() if "greedy_decode" in k]
+    if not decode_ms:
+        raise AssertionError("the trace holds no greedy_decode kernel")
+    top = "; ".join(f"{k[:90]} {ms:.3f} ms ({100 * share:.1f}%, x{n})" for k, ms, share, n in summary["top"])
+    print(
+        f"trace of one 60 s transcribe [{smi}]: window {summary['window_ms']:.2f} ms (host wall {traced_s * 1e3:.1f} ms "
+        f"with the profiler on), {summary['n_kernels']} CUDA kernels, {summary['kernel_ms']:.3f} ms of kernel time, "
+        f"device busy share {100 * summary['busy_share']:.1f}% (union of kernel intervals over the window); "
+        f"greedy_decode {sum(decode_ms):.3f} ms of device time; peak allocated {peak_bytes / 2**20:.1f} MiB, "
+        f"{(peak_bytes - before_bytes) / 2**20:.1f} MiB above the {before_bytes / 2**20:.1f} MiB the process held "
+        f"before the call (device_memory_stats); launches {json.dumps(launches)}; "
+        f"{len(events)} events; written to {(trace_dir / profiling.TRACE_NAME).relative_to(REPO)}"
+    )
+    print(f"top 5 CUDA kernels by device time [{smi}]: {top}")
+    print(f"data phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1702,11 +1956,16 @@ def main() -> int:
     # ---------------- phase 7: training ----------------
     trained, train_codec = training_phase(smi)
     by_path.update(trained)
-    print(f"greedy_decode launches by path: {json.dumps(by_path)}")
     codec_by_path = {"codec_transport": codec_path["pcm_decode"], "train_codec_batch": train_codec}
+
+    # ---------------- phase 8: data, scoring and measurement ----------------
+    measured = data_phase(smi)
+    by_path["measure"] = measured["greedy_decode"]
+    codec_by_path["measure"] = measured["pcm_decode"]
+    print(f"greedy_decode launches by path: {json.dumps(by_path)}")
     print(f"pcm_decode launches by path: {json.dumps(codec_by_path)}")
 
-    # ---------------- phase 8: kernels ----------------
+    # ---------------- phase 9: kernels ----------------
     kernels = [{
         "name": "greedy_decode",
         "route": "cuda",
@@ -1737,7 +1996,7 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels}))
 
-    # ---------------- phase 9: result ----------------
+    # ---------------- phase 10: result ----------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -579,6 +579,96 @@ def test_scans_cover_the_formats_slice():
     assert set(FORMATS_SLICE) <= scanned
 
 
+DATA_SLICE = ("utils/eval.py", "data/annotations.py", "data/fetch.py", "data/commandline.py", "data/pipeline.py",
+              "data/datasets/base.py", "data/datasets/guitarset.py", "data/datasets/ikala.py",
+              "data/datasets/maestro.py", "data/datasets/medleydb_pitch.py", "data/datasets/slakh.py",
+              "cli/download.py", "cli/eval.py", "utils/flops.py", "utils/profiling.py")
+
+
+def test_scans_cover_the_data_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert set(DATA_SLICE) <= scanned
+
+
+def _code(path: pathlib.Path) -> str:
+    """A module's code without its docstrings, with the JAX package's name
+    read as the port's: equal for a copy, whatever its comments say."""
+    tree = ast.parse(path.read_text().replace("basic_pitch_tpu", "basic_pitch_torch"))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+# the ETL and evaluation copies; `data/commandline.py` differs only in the
+# default destination (``~/data/basic_pitch_torch/<dataset>``), which the
+# name swap reads as equal and `test_commandline_parsers_match` pins
+EXACT_COPIES = ("utils/eval.py", "data/annotations.py", "data/fetch.py", "data/commandline.py", "data/pipeline.py",
+                "data/datasets/__init__.py", "data/datasets/base.py", "data/datasets/guitarset.py",
+                "data/datasets/ikala.py", "data/datasets/maestro.py", "data/datasets/medleydb_pitch.py",
+                "data/datasets/slakh.py")
+
+
+@pytest.mark.parametrize("module", EXACT_COPIES)
+def test_data_copies_match(module):
+    assert _code(PORT / module) == _code(REPO / "basic_pitch_tpu" / module)
+
+
+def _options(parser) -> list:
+    return [(tuple(a.option_strings), a.dest, a.default, a.choices, a.type, a.nargs, a.const, a.help)
+            for a in parser._actions]
+
+
+@pytest.mark.parametrize("dataset", ["guitarset", "ikala", "maestro", "medleydb_pitch", "slakh"])
+def test_commandline_parsers_match(dataset):
+    """Each builder's flags equal the JAX builder's; the default
+    destination differs by the package name only."""
+    import importlib
+
+    t_mod = importlib.import_module(f"basic_pitch_torch.data.datasets.{dataset}")
+    j_mod = importlib.import_module(f"basic_pitch_tpu.data.datasets.{dataset}")
+    t_parser, j_parser = t_mod.build_parser(), j_mod.build_parser()
+    t_opts, j_opts = _options(t_parser), _options(j_parser)
+    home = pathlib.Path.home()
+    assert t_parser.get_default("destination") == str(home / "data" / "basic_pitch_torch" / dataset)
+    assert j_parser.get_default("destination") == str(home / "data" / "basic_pitch_tpu" / dataset)
+    swap = [tuple(str(x).replace("basic_pitch_tpu", "basic_pitch_torch") if isinstance(x, str) else x for x in o)
+            for o in j_opts]
+    assert t_opts == swap
+    assert t_parser.get_default("validation_percent") == j_parser.get_default("validation_percent")
+    assert t_mod.DATASET_NAME == j_mod.DATASET_NAME == dataset
+
+
+def test_new_cli_parsers_match():
+    """``basic-pitch-torch-eval`` has the JAX CLI's options plus
+    ``--device``; ``basic-pitch-torch-download`` dispatches the same
+    datasets."""
+    from basic_pitch_torch.cli import download as t_download
+    from basic_pitch_torch.cli import eval as t_eval_cli
+    from basic_pitch_tpu.cli import download as j_download
+    from basic_pitch_tpu.cli import eval as j_eval_cli
+
+    t_opts = _options(t_eval_cli.build_parser())
+    assert [o for o in t_opts if o[0] != ("--device",)] == _options(j_eval_cli.build_parser())
+    device = next(o for o in t_opts if o[0] == ("--device",))
+    assert device[2] == "cuda" and device[3] == ["cuda", "cpu"]
+    assert t_download._dispatch_table().keys() == j_download._dispatch_table().keys()
+    assert t_eval_cli.MIDI_SUFFIXES == j_eval_cli.MIDI_SUFFIXES and t_eval_cli.AUDIO_SUFFIXES == j_eval_cli.AUDIO_SUFFIXES
+
+
+def test_fetch_catalog_matches():
+    from basic_pitch_torch.data import fetch as t_fetch
+    from basic_pitch_tpu.data import fetch as j_fetch
+
+    assert t_fetch.CATALOG.keys() == j_fetch.CATALOG.keys()
+    for name, remotes in t_fetch.CATALOG.items():
+        assert [dataclasses.asdict(r) for r in remotes] == [dataclasses.asdict(r) for r in j_fetch.CATALOG[name]], name
+        assert [r.is_archive for r in remotes] == [r.is_archive for r in j_fetch.CATALOG[name]]
+    assert t_fetch._CHUNK == j_fetch._CHUNK
+
+
 def test_importing_the_port_loads_no_tensorflow():
     """The package root, `inference` (whose format readers are numpy) and
     the export CLI load no tensorflow; only `models/tf_export.py` does,
@@ -646,7 +736,7 @@ def test_importing_the_port_loads_no_jax():
         "if 'tensorflow' not in sys.modules:\n"
         "    assert not [k for k in sys.modules if k.split('.')[0] in ROOTS]\n"
         "assert 'basic_pitch_torch.pipeline' in sys.modules\n"
-        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE!r})\n"
+        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE + DATA_SLICE!r})\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -671,3 +761,18 @@ def test_chip_scripts_refuse_without_a_gpu(script):
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "needs an NVIDIA GPU" in proc.stderr
+
+
+def test_port_console_scripts_resolve():
+    """Every ``basic-pitch-torch*`` script in pyproject names a callable of
+    the port, the two of this slice among them."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["scripts"]
+    port = {name: target for name, target in scripts.items() if name.startswith("basic-pitch-torch")}
+    assert {"basic-pitch-torch-eval", "basic-pitch-torch-download"} <= set(port)
+    for name, target in port.items():
+        module, func = target.split(":")
+        assert module.startswith("basic_pitch_torch."), name
+        assert callable(getattr(importlib.import_module(module), func)), name
