@@ -60,7 +60,7 @@ def cxx_path() -> str:
     """The host C++ compiler: g++ on PATH."""
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found: the host packer needs a C++ compiler on PATH")
+        raise RuntimeError("g++ not found: the host libraries need a C++ compiler on PATH")
     return found
 
 

@@ -3,10 +3,17 @@
 The flags of `basic_pitch_tpu/cli/train.py` (the reference trainer's,
 the reference's `basic_pitch/train.py:171-288`: per-dataset booleans from
 DATASET_SAMPLING_FREQUENCY with normalized sampling weights), plus
-``--device`` (``cuda`` by default; ``cpu`` only when asked for). Training
-runs on one device: ``--num-processes > 1`` and ``--coordinator`` are
-refused until the port's multi-GPU slice exists, and ``--no-data-parallel``
-changes nothing on one device.
+``--device`` (``cuda`` by default; ``cpu`` only when asked for). Each
+process trains on one device. With ``--num-processes N`` (N > 1), N
+processes train data-parallel (`parallel/distributed.py`: NCCL on GPUs,
+gloo on the CPU), each started with its ``--process-id`` and the same
+``--coordinator host:port`` (or MASTER_ADDR / MASTER_PORT in the
+environment); each reads its own part of the training files and a 1/N
+slice of every global ``--batch-size``, and only process 0 writes
+checkpoints and logs. A CUDA process takes the card of its LOCAL_RANK
+(else its process id) modulo the cards it sees. ``--no-data-parallel``
+changes nothing: the PyTorch idiom is one process per device, so there is
+nothing to shard within a process.
 
 Each run writes into ``<output>/<UTC timestamp>/``: ``model.best.npz``,
 ``checkpoints/model.NN.npz`` (the JAX package's flat layout) and
@@ -69,11 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-data-parallel", dest="data_parallel", action="store_false",
                         help="disable sharding the batch across devices (training runs on one device)")
     parser.add_argument("--coordinator", default="",
-                        help="multi-process training: coordinator address (not ported yet)")
+                        help="multi-process training: coordinator address host:port "
+                             "(empty: MASTER_ADDR / MASTER_PORT from the environment)")
     parser.add_argument("--num-processes", type=int, default=1,
-                        help="multi-process training: total number of processes (not ported yet)")
+                        help="multi-process training: total number of processes")
     parser.add_argument("--process-id", type=int, default=0,
-                        help="multi-process training: this process's id in [0, --num-processes) (not ported yet)")
+                        help="multi-process training: this process's id in [0, --num-processes)")
     parser.add_argument("--parse-workers", type=int, default=2,
                         help="loader record-parse threads (order-preserving; "
                              "deterministic for a fixed seed)")
@@ -122,98 +130,116 @@ def train(
     steps_per_dispatch: int = 1,
     train_precision: str = "highest",
     device: str = "cuda",
+    coordinator: str = "",
+    num_processes: int = 1,
+    process_id: int = 0,
 ) -> pathlib.Path:
-    """Build datasets, model and callbacks, then run the fit loop on one
-    device. Returns the run directory."""
-    from basic_pitch_torch.data import loader
-    from basic_pitch_torch.models import nmp
+    """Build datasets, model and callbacks, then run the fit loop on this
+    process's device, data-parallel over ``num_processes`` processes when
+    there are several. Returns the run directory."""
+    from basic_pitch_torch.parallel import distributed
     from basic_pitch_torch.pipeline import resolve_device
-    from basic_pitch_torch.train import loop as train_loop
 
     dev = resolve_device(device)  # before any work: no GPU and no --device cpu raises here
-    logging.info("source directory: %s", source)
-    logging.info("output directory: %s", output)
-    logging.info("device: %s", dev)
-    logging.info(
-        "batch_size=%d shuffle_size=%d lr=%g epochs=%d steps/epoch=%d val_steps=%d",
-        batch_size, shuffle_size, learning_rate, epochs, steps_per_epoch, validation_steps,
-    )
-    logging.info("datasets: %s, weights: %s", datasets_to_use, dataset_sampling_frequency)
+    if num_processes > 1:
+        if batch_size % num_processes:  # not assert: survives -O
+            raise ValueError(f"batch size {batch_size} must divide across {num_processes} processes")
+        if steps_per_dispatch > 1:
+            raise ValueError("--steps-per-dispatch is single-process (multi-process runs feed per-step batches)")
+        if dev.type == "cuda":
+            import torch
 
-    model_config = nmp.ModelConfig(no_contours=no_contours, trainable_cqt=trainable_cqt)
-    train_iter, val_iter = loader.prepare_datasets(
-        source,
-        shuffle_size,
-        batch_size,
-        validation_steps,
-        datasets_to_use,
-        dataset_sampling_frequency,
-        device_targets=device_targets,
-        parse_workers=parse_workers,
-    )
-    if steps_per_dispatch > 1:
-        train_iter = train_loop.grouped_batches(train_iter, steps_per_dispatch)
+            local_rank = int(os.environ.get("LOCAL_RANK", process_id))
+            dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        distributed.initialize(coordinator or None, num_processes, process_id, device=dev)
+    try:
+        from basic_pitch_torch.data import loader
+        from basic_pitch_torch.models import nmp
+        from basic_pitch_torch.train import loop as train_loop
 
-    run_dir = run_directory(output)
-    callbacks = []
-    if size_evaluation_callback_datasets > 0:
-        from basic_pitch_torch.train.visualize import VisualizeCallback
-
-        # restart the stream when a pass over the split completes, so the
-        # callback keeps getting batches for the whole run
-        def _cycling(split: str, seed: Optional[int] = None):
-            while True:
-                empty = True
-                for item in loader.example_stream(
-                    split, source, datasets_to_use, dataset_sampling_frequency,
-                    n_samples_per_track=1, seed=seed,
-                ):
-                    empty = False
-                    yield item
-                if empty:
-                    return  # empty split: don't spin forever
-
-        viz_batch = min(size_evaluation_callback_datasets, 4)
-        callbacks.append(
-            VisualizeCallback(
-                loader._prefetch(loader._batched(_cycling("train", seed=0), viz_batch), 1),
-                loader._prefetch(loader._batched(_cycling("validation"), viz_batch), 1),
-                os.path.join(run_dir, "tensorboard"),
-                sonify=not no_sonify,
-                contours=not no_contours,
-            )
+        logging.info("source directory: %s", source)
+        logging.info("output directory: %s", output)
+        logging.info("device: %s (process %d of %d)", dev, process_id, num_processes)
+        logging.info(
+            "batch_size=%d shuffle_size=%d lr=%g epochs=%d steps/epoch=%d val_steps=%d",
+            batch_size, shuffle_size, learning_rate, epochs, steps_per_epoch, validation_steps,
         )
+        logging.info("datasets: %s, weights: %s", datasets_to_use, dataset_sampling_frequency)
 
-    config = train_loop.TrainConfig(
-        learning_rate=learning_rate,
-        precision=train_precision,
-        weighted_onset_loss=weighted_onset_loss,
-        positive_onset_weight=positive_onset_weight,
-        steps_per_epoch=steps_per_epoch,
-        validation_steps=validation_steps,
-        epochs=epochs,
-    )
-    train_loop.fit(
-        train_iter,
-        val_iter,
-        run_dir,
-        config=config,
-        model_config=model_config,
-        callbacks=tuple(callbacks),
-        log=logging.info,
-        device=dev,
-    )
-    return run_dir
+        model_config = nmp.ModelConfig(no_contours=no_contours, trainable_cqt=trainable_cqt)
+        train_iter, val_iter = loader.prepare_datasets(
+            source,
+            shuffle_size,
+            batch_size,
+            validation_steps,
+            datasets_to_use,
+            dataset_sampling_frequency,
+            device_targets=device_targets,
+            num_shards=num_processes,
+            shard_index=process_id,
+            parse_workers=parse_workers,
+        )
+        if steps_per_dispatch > 1:
+            train_iter = train_loop.grouped_batches(train_iter, steps_per_dispatch)
+
+        run_dir = run_directory(output)
+        callbacks = []
+        if size_evaluation_callback_datasets > 0 and process_id == 0:  # only process 0 logs
+            from basic_pitch_torch.train.visualize import VisualizeCallback
+
+            # restart the stream when a pass over the split completes, so the
+            # callback keeps getting batches for the whole run
+            def _cycling(split: str, seed: Optional[int] = None):
+                while True:
+                    empty = True
+                    for item in loader.example_stream(
+                        split, source, datasets_to_use, dataset_sampling_frequency,
+                        n_samples_per_track=1, seed=seed,
+                    ):
+                        empty = False
+                        yield item
+                    if empty:
+                        return  # empty split: don't spin forever
+
+            viz_batch = min(size_evaluation_callback_datasets, 4)
+            callbacks.append(
+                VisualizeCallback(
+                    loader._prefetch(loader._batched(_cycling("train", seed=0), viz_batch), 1),
+                    loader._prefetch(loader._batched(_cycling("validation"), viz_batch), 1),
+                    os.path.join(run_dir, "tensorboard"),
+                    sonify=not no_sonify,
+                    contours=not no_contours,
+                )
+            )
+
+        config = train_loop.TrainConfig(
+            learning_rate=learning_rate,
+            precision=train_precision,
+            weighted_onset_loss=weighted_onset_loss,
+            positive_onset_weight=positive_onset_weight,
+            steps_per_epoch=steps_per_epoch,
+            validation_steps=validation_steps,
+            epochs=epochs,
+        )
+        train_loop.fit(
+            train_iter,
+            val_iter,
+            run_dir,
+            config=config,
+            model_config=model_config,
+            callbacks=tuple(callbacks),
+            log=logging.info,
+            device=dev,
+        )
+        return run_dir
+    finally:
+        if num_processes > 1:
+            distributed.shutdown()
 
 
 def main(argv: Optional[List[str]] = None) -> pathlib.Path:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError(
-            "--num-processes > 1 / --coordinator: multi-process training is not ported yet "
-            "(the port's multi-GPU slice, ROADMAP.md queue 1)"
-        )
     datasets_flagged = [
         dataset
         for dataset in constants.DATASET_SAMPLING_FREQUENCY
@@ -247,6 +273,9 @@ def main(argv: Optional[List[str]] = None) -> pathlib.Path:
         args.steps_per_dispatch,
         args.train_precision,
         args.device,
+        args.coordinator,
+        args.num_processes,
+        args.process_id,
     )
 
 

@@ -625,8 +625,8 @@ def prepare_datasets(
     Multi-process training: pass the process count as ``num_shards`` and
     the process index as ``shard_index``; ``batch_size`` stays the GLOBAL
     batch size — each process reads only its disjoint file partition and
-    yields batches of ``batch_size / num_shards`` items (the port's trainer
-    is single-process for now).
+    yields batches of ``batch_size / num_shards`` items (the train CLI
+    passes them with ``--num-processes`` / ``--process-id``).
     Validation stays unsharded and host-global (identical cached batches
     on every host) so the early-stop/LR-plateau decisions agree across
     processes."""

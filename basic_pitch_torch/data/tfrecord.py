@@ -7,9 +7,10 @@ Record layout (little-endian):
     uint32 masked_crc32c(data)
 
 Files written here are readable by TensorFlow's TFRecordDataset and vice
-versa. A copy of `basic_pitch_tpu/data/tfrecord.py` without its native
-CRC fast path: the checksum is the table-driven one, pinned equal to the
-JAX package's result by `tests/test_torch_params.py`.
+versa. A copy of `basic_pitch_tpu/data/tfrecord.py`: the checksum is the
+native library's slice-by-8 CRC32C when it is built (`native.crc32c`),
+else the table-driven loop; `tests/test_torch_params.py` pins both equal to
+the JAX package's result.
 """
 
 from __future__ import annotations
@@ -39,7 +40,17 @@ _TABLE = _make_table()
 
 
 def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli), one table lookup per byte."""
+    """CRC-32C (Castagnoli); native slice-by-8 when the library is built."""
+    from basic_pitch_torch import native
+
+    fast = native.crc32c(data)
+    if fast is not None:
+        return fast
+    return crc32c_table(data)
+
+
+def crc32c_table(data: bytes) -> int:
+    """CRC-32C, one table lookup per byte: the plain version."""
     crc = 0xFFFFFFFF
     table = _TABLE
     for byte in data:

@@ -283,18 +283,28 @@ class BatchNorm(nn.BatchNorm2d):
     *biased* batch variance (`jnp.var`), and returns them detached for the
     loop's moving-average update; the buffers are never touched here
     (`nn.BatchNorm2d`'s own update uses the unbiased variance and the other
-    momentum convention)."""
+    momentum convention). With ``all_sum`` (a differentiable sum over
+    processes, `parallel/distributed.all_sum`) the batch is the global one:
+    the mean and then the biased variance are sums over every process's
+    slice divided by the global count, two passes as `torch.var_mean`."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPSILON)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, BatchStats]:  # type: ignore[override]
+    def forward(  # type: ignore[override]
+        self, x: torch.Tensor, train: bool = False, all_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    ) -> Tuple[torch.Tensor, BatchStats]:
         x = x.to(self.weight.dtype)
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
             return y, None
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         shape = (1, -1, 1, 1)
+        if all_sum is None:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        else:
+            count = all_sum(x.new_tensor(float(x.numel() // x.shape[1])))
+            mean = all_sum(torch.sum(x, dim=(0, 2, 3))) / count
+            var = all_sum(torch.sum(torch.square(x - mean.view(shape)), dim=(0, 2, 3))) / count
         inv = torch.rsqrt(var + self.eps)
         y = (x - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) + self.bias.view(shape)
         return y, (mean.detach(), var.detach())
@@ -322,14 +332,19 @@ class NMP(nn.Module):
         self.eval()
 
     def frontend(
-        self, audio: torch.Tensor, train: bool = False, precision: str = "highest"
+        self,
+        audio: torch.Tensor,
+        train: bool = False,
+        precision: str = "highest",
+        all_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, BatchStats]]:
         """(b, AUDIO_N_SAMPLES) -> (harmonically stacked, normalized CQT,
         NCHW (b, n_harmonics, n_frames, 264), float32; {"bn_cqt": batch
-        stats}), the CQT under ``precision``."""
+        stats}), the CQT under ``precision``; ``all_sum`` as for
+        `BatchNorm`."""
         with precision_scope(precision, audio.device.type):
             x = normalized_log(self.cqt(audio).float()).unsqueeze(1)  # (b, 1, t, n_bins)
-        x, stats = self.bn_cqt(x, train)
+        x, stats = self.bn_cqt(x, train, all_sum)
         stacked = harmonic_stack(
             x.permute(0, 2, 3, 1),
             constants.CONTOURS_BINS_PER_SEMITONE,
@@ -345,6 +360,7 @@ class NMP(nn.Module):
         precision: str = "highest",
         head_precision: Optional[str] = None,
         conv_impl: str = "conv",
+        all_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, BatchStats]]:
         """The JAX package's `nmp.forward`: (b, 43844) float32 at 22050 Hz ->
         ({"onset": (b,t,88), "contour": (b,t,264), "note": (b,t,88)}, float32,
@@ -353,12 +369,13 @@ class NMP(nn.Module):
         frequency-major as the JAX package's channel-last reshape gives it.
         ``precision`` steers the CQT and, unless ``head_precision`` is given,
         the heads (`precision_scope`); ``conv_impl`` picks the heads'
-        lowering (`resolve_conv_impl`)."""
+        lowering (`resolve_conv_impl`); with ``all_sum`` the train-mode
+        batch norms take the global batch's statistics (`BatchNorm`)."""
         conv, conv_contour = resolve_conv_impl(conv_impl)
-        x, stats = self.frontend(audio, train, precision)
+        x, stats = self.frontend(audio, train, precision, all_sum)
 
         with precision_scope(precision if head_precision is None else head_precision, audio.device.type):
-            c, stats["bn_contour"] = self.bn_contour(conv_contour(x, self.contour_conv), train)
+            c, stats["bn_contour"] = self.bn_contour(conv_contour(x, self.contour_conv), train, all_sum)
             c = torch.relu(c)
             if self.config.no_contours:
                 contour = c.permute(0, 2, 3, 1).reshape(c.shape[0], c.shape[2], -1)
@@ -370,7 +387,7 @@ class NMP(nn.Module):
             n = torch.relu(conv(note_in, self.note_conv))
             n_pre = torch.sigmoid(conv(n, self.note_out))  # (b, 1, t, 88)
 
-            o, stats["bn_onset"] = self.bn_onset(conv(x, self.onset_conv), train)
+            o, stats["bn_onset"] = self.bn_onset(conv(x, self.onset_conv), train, all_sum)
             o = torch.cat([n_pre, torch.relu(o)], dim=1)  # note-pre first, then the onset stack
             onset = torch.sigmoid(conv(o, self.onset_out))
 

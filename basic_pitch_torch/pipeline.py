@@ -1,8 +1,8 @@
-"""Chunked transcription on one device: raw PCM to note events.
+"""Chunked transcription on one device or a list of devices: raw PCM to
+note events.
 
-PyTorch counterpart of `basic_pitch_tpu/pipeline.py` on one device. A
-recording is uploaded in pieces of W model windows; per piece, on the
-device:
+PyTorch counterpart of `basic_pitch_tpu/pipeline.py`. A recording is
+uploaded in pieces of W model windows; per piece, on the device:
 
     raw PCM piece: float32, or int16 scaled by 1/32768 on the device, or
       int16 packed on host threads by the lossless codec and decoded by the
@@ -17,7 +17,15 @@ device:
 then, once per recording, the greedy note decode (the CUDA kernel of
 `decode/greedy_kernel.py` on a GPU, its plain version on the CPU) and the
 per-note bend gather. Only the note count, then count-sized note buffers,
-cross back to the host, where events are assembled. A decode that
+cross back to the host, where events are assembled.
+
+Over a list of devices (``devices=``, JAX's ``mesh=``), each piece is cut
+into one row per device: row r holds that shard's W/N windows plus the
+overlap halo (and, at 44.1 kHz, the decimator's), uploads to devices[r]
+alone (through the codec there when it applies), and is decimated,
+unfolded, run through that device's copy of the model and trimmed there.
+The rows' outputs are concatenated in row order on devices[0], where the
+bend matrix and the decode run. A decode that
 overflows its buffers falls back to the host decoder (`decode/notes.py`) on
 the posteriorgrams, and `host_fallbacks` counts it.
 
@@ -34,12 +42,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import pathlib
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from basic_pitch_torch import constants
+from basic_pitch_torch.device import resolve_device
 from basic_pitch_torch.decode import device as device_decode
 from basic_pitch_torch.decode import greedy_kernel
 from basic_pitch_torch.decode import notes as host_decode
@@ -48,6 +57,7 @@ from basic_pitch_torch.models import params as params_io
 from basic_pitch_torch.ops import pcmcodec
 from basic_pitch_torch.ops import resample as resample_ops
 from basic_pitch_torch.ops import transport
+from basic_pitch_torch.parallel import mesh as mesh_lib
 from basic_pitch_torch.utils import audio as audio_io
 
 HOP = constants.WINDOW_HOP_SAMPLES  # 36164
@@ -56,24 +66,6 @@ WINDOW = constants.AUDIO_N_SAMPLES  # 43844
 TRIM = constants.N_OVERLAPPING_FRAMES // 2  # 15
 FRAMES_PER_WINDOW = constants.N_FRAMES_PER_WINDOW_TRIMMED  # 142
 _DEC_HALO = 128  # left context the 257-tap decimator needs
-
-
-def resolve_device(device: "str | torch.device | None") -> torch.device:
-    """``None`` means the GPU, and raises when there is none; the CPU is
-    used only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cuda or cpu, got {device!r}")
-    return dev
 
 
 def unfold_windows(piece: torch.Tensor, w: int) -> torch.Tensor:
@@ -114,7 +106,8 @@ class DecodeOptions(NamedTuple):
 
 
 class StreamingTranscriber:
-    """Chunked transcription of recordings to note events on one device.
+    """Chunked transcription of recordings to note events on one device or
+    over a list of devices.
 
     Args:
         model_or_params: checkpoint path (the shipped ICASSP-2022 weights by
@@ -124,6 +117,12 @@ class StreamingTranscriber:
         windows_per_chunk: W, the windows of one upload.
         device: "cuda" (the default, which raises when there is no GPU) or
             "cpu".
+        devices: instead of ``device``, an ordered list of devices (JAX's
+            ``mesh``; `parallel.mesh.make_mesh`), which may repeat one: each
+            chunk's W windows split into len(devices) rows of W/N windows,
+            row r uploaded to and run on devices[r], the outputs gathered and
+            decoded on devices[0]. W must divide by N; ``compute_group`` is
+            then 1. A CUDA device with no GPU raises.
         precision: numerics of the front end (the decimator's and the CQT's
             matmuls) and, unless ``head_precision`` is given, of the heads:
             "highest" (float32, TF32 off; posteriorgrams within 1e-4 of the
@@ -156,9 +155,12 @@ class StreamingTranscriber:
 
     Attributes read by callers: ``w``, ``decode_backend`` ("kernel" on
     cuda, "plain" on cpu), ``pcm_transport`` (the mode asked for),
-    ``piece_upload_bytes`` ({"default": bytes of pieces that crossed the
-    link}, packed bytes for codec pieces as the JAX package counts them) and
-    ``host_fallbacks``, the count of decodes that overflowed to the host.
+    ``piece_upload_bytes`` (bytes of pieces that crossed the link, packed
+    bytes for codec pieces as the JAX package counts them: on one device
+    under the key "default"; over a device list per shard, under
+    "<device>/<row>", e.g. "cuda:0/1", so that a repeated device keeps one
+    count per shard) and ``host_fallbacks``, the count of decodes that
+    overflowed to the host.
     ``reprobe_after_calls`` (True) lets the calls that fetch results start
     the TTL re-probe.
     """
@@ -169,6 +171,7 @@ class StreamingTranscriber:
         windows_per_chunk: int = 128,
         device: "str | torch.device | None" = None,
         *,
+        devices: "Optional[Sequence[str | torch.device]]" = None,
         precision: str = "highest",
         head_precision: Optional[str] = None,
         conv_impl: str = "conv",
@@ -176,7 +179,16 @@ class StreamingTranscriber:
         pcm_transport: str = "auto",
         transport_ttl_s: float = 120.0,
     ):
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        # one device is a device list of one entry
+        self.devices: List[torch.device] = [resolve_device(device)] if devices is None else mesh_lib.make_mesh(devices)
+        self.device = self.devices[0]
+        self.w = int(windows_per_chunk)
+        if self.w < 1:
+            raise ValueError("windows_per_chunk must be >= 1")
+        if self.w % len(self.devices):
+            raise ValueError(f"windows_per_chunk {self.w} must divide across {len(self.devices)} devices")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         for name, value in (("precision", precision), ("head_precision", head_precision)):
@@ -186,27 +198,34 @@ class StreamingTranscriber:
         self.precision = precision
         self.head_precision = head_precision
         self.conv_impl = conv_impl
-        self.compute_group = max(1, int(compute_group))
+        # a sharded chunk already runs one model call per device
+        self.compute_group = 1 if devices is not None else max(1, int(compute_group))
         self.pcm_transport = transport.check_mode(pcm_transport)
         self.transport_ttl_s = transport_ttl_s
         self.reprobe_after_calls = True
+        distinct = mesh_lib.distinct(self.devices)
         if self.pcm_transport == "codec":
             # forced: no silent fallback to raw when a half cannot be built
             pcmcodec.packer()
-            if self.device.type == "cuda":
+            if any(dev.type == "cuda" for dev in distinct):
                 pcmcodec.kernel()
         elif self.pcm_transport == "auto":
-            transport.resolve("auto", device=self.device)  # the first probe of this device
+            for dev in distinct:
+                transport.resolve("auto", device=dev)  # the first probe of each device
         if isinstance(model_or_params, nmp.NMP):
             model = model_or_params
         else:
             flat = model_or_params if isinstance(model_or_params, dict) else params_io.load_flat(model_or_params)
             model = params_io.model_from_flat(flat)
         self.model = model.to(self.device).eval()
-        self.w = int(windows_per_chunk)
-        if self.w < 1:
-            raise ValueError("windows_per_chunk must be >= 1")
         self.chunk_len = HOP * self.w + OVERLAP  # samples @22.05k per chunk
+        self.n_shards = len(self.devices)
+        # each shard receives only its own w/N windows plus the overlap halo:
+        # per-shard upload bytes are ~1/N of the single device's
+        self.w_local = self.w // self.n_shards
+        self.row_span = self.w_local * HOP + OVERLAP
+        self._row_models = mesh_lib.replicate(self.devices, self.model)
+        self._row_keys = ["default"] if devices is None else [f"{dev}/{r}" for r, dev in enumerate(self.devices)]
         on_gpu = self.device.type == "cuda"
         self.decode_backend = "kernel" if on_gpu else "plain"
         self.host_fallbacks = 0
@@ -214,12 +233,13 @@ class StreamingTranscriber:
         # threads of the native packer (ctypes releases the GIL), made at
         # the first codec dispatch
         self._pack_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
-        self._dec2 = torch.from_numpy(resample_ops.decimate2_matrix()).to(self.device)
-        # one pinned host buffer for uploads, copied on a side stream so the
-        # next piece's upload overlaps the current chunk's compute
+        dec2 = torch.from_numpy(resample_ops.decimate2_matrix())
+        self._dec2 = {dev: dec2.to(dev) for dev in distinct}
+        # one pinned host buffer for uploads, copied on a side stream of its
+        # device so the next piece's upload overlaps the current compute
         self._pinned: Optional[torch.Tensor] = None
         self._upload_done: Optional[torch.cuda.Event] = None
-        self._copy_stream = torch.cuda.Stream(self.device) if on_gpu else None
+        self._copy_streams = {dev: torch.cuda.Stream(dev) for dev in distinct if dev.type == "cuda"}
 
     def close(self) -> None:
         """Release the pinned upload buffer and the packer threads
@@ -262,24 +282,28 @@ class StreamingTranscriber:
         return audio, is_44k, n_chunks, n_frames
 
     def _pieces(self, audio: np.ndarray, is_44k: bool, n_chunks: int):
-        """Host-side chunk pieces (views where possible, zero-padded edges);
-        a 44.1 kHz piece carries the decimator's halo on both sides."""
+        """Host-side chunk pieces, each a list of rows (views where possible,
+        zero-padded edges): row r covers shard r's w/N windows plus the
+        overlap halo, so no device receives the whole piece (one device gets
+        the whole chunk as its one row); a 44.1 kHz row carries the
+        decimator's halo on both sides."""
         pad_front = OVERLAP // 2
-        if is_44k:
-            piece_len = 2 * self.chunk_len + 2 * _DEC_HALO
-            for c in range(n_chunks):
-                lo = 2 * (c * self.w * HOP - pad_front) - _DEC_HALO
-                yield _padded_slice(audio, lo, lo + piece_len)
-        else:
-            for c in range(n_chunks):
-                lo = c * self.w * HOP - pad_front
-                yield _padded_slice(audio, lo, lo + self.chunk_len)
+        for c in range(n_chunks):
+            rows = []
+            for r in range(self.n_shards):
+                lo = (c * self.w + r * self.w_local) * HOP - pad_front
+                if is_44k:
+                    lo = 2 * lo - _DEC_HALO
+                    rows.append(_padded_slice(audio, lo, lo + 2 * self.row_span + 2 * _DEC_HALO))
+                else:
+                    rows.append(_padded_slice(audio, lo, lo + self.row_span))
+            yield rows
 
-    def _upload(self, piece: np.ndarray) -> torch.Tensor:
-        """Ship one host array (a float32 or int16 piece, or a codec wire of
-        uint8) to the device through the pinned buffer; the buffer is
+    def _upload(self, piece: np.ndarray, device: torch.device) -> torch.Tensor:
+        """Ship one host array (a float32 or int16 row, or a codec wire of
+        uint8) to ``device`` through the pinned buffer; the buffer is
         rewritten only after the previous copy from it has landed."""
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return torch.from_numpy(np.array(piece))
         dtype = torch.from_numpy(piece[:0]).dtype
         if self._upload_done is not None:
@@ -288,24 +312,26 @@ class StreamingTranscriber:
             self._pinned = torch.empty(piece.nbytes, dtype=torch.uint8, pin_memory=True)
         host = self._pinned[: piece.nbytes].view(dtype)
         host.numpy()[:] = piece
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
+        compute = torch.cuda.current_stream(device)
+        copy_stream = self._copy_streams[device]
+        with torch.cuda.stream(copy_stream):
+            dev = host.to(device, non_blocking=True)
             self._upload_done = torch.cuda.Event()
-            self._upload_done.record(self._copy_stream)
+            self._upload_done.record(copy_stream)
         compute.wait_event(self._upload_done)
         dev.record_stream(compute)
         return dev
 
-    def _codec_enabled(self, dtype: np.dtype) -> bool:
-        """Should this recording's int16 pieces ride the codec? "codec" and
-        "raw" are unconditional; "auto" follows the cached probe of this
-        device and never starts a measurement (`refresh_transport` does)."""
+    def _codec_enabled(self, dtype: np.dtype, device: Optional[torch.device] = None) -> bool:
+        """Should this recording's int16 rows for ``device`` (devices[0] when
+        None) ride the codec? "codec" and "raw" are unconditional; "auto"
+        follows the cached probe of that device and never starts a
+        measurement (`refresh_transport` does)."""
         if dtype != np.int16 or self.pcm_transport == "raw":
             return False
         if self.pcm_transport == "codec":
             return True
-        return transport.resolve("auto", device=self.device) == "codec"
+        return transport.resolve("auto", device=self.device if device is None else device) == "codec"
 
     def refresh_transport(self, wait: bool = False) -> None:
         """With "auto", re-probe the link when the cached probe is older than
@@ -313,7 +339,8 @@ class StreamingTranscriber:
         ``wait``. The calls that fetch results run it once their results are
         on the host, unless ``reprobe_after_calls`` is False."""
         if self.pcm_transport == "auto" and pcmcodec.available():
-            transport.probe(self.device, ttl_s=self.transport_ttl_s, wait=wait)
+            for dev in mesh_lib.distinct(self.devices):
+                transport.probe(dev, ttl_s=self.transport_ttl_s, wait=wait)
 
     def _packer_threads(self) -> concurrent.futures.ThreadPoolExecutor:
         if self._pack_pool is None:
@@ -323,57 +350,74 @@ class StreamingTranscriber:
         return self._pack_pool
 
     def _upload_piece(
-        self, piece: np.ndarray, packed: "Optional[Tuple[pcmcodec.PackedPCM, Tuple[np.ndarray, pcmcodec.WireLayout]]]"
+        self,
+        piece: np.ndarray,
+        packed: "Optional[Tuple[pcmcodec.PackedPCM, Tuple[np.ndarray, pcmcodec.WireLayout]]]",
+        device: torch.device,
+        key: str,
     ) -> torch.Tensor:
-        """One piece on the device as float32 samples, counting the bytes
-        that crossed: the codec's packed bytes where they are fewer than the
-        raw piece's, else the raw piece."""
+        """One row on ``device`` as float32 samples, counting the bytes that
+        crossed under ``key``: the codec's packed bytes where they are fewer
+        than the raw row's (one `pcm_decode` launch on that device), else the
+        raw row."""
         if packed is not None and packed[0].packed_bytes < piece.nbytes:
             pk, (wire, layout) = packed
-            self.piece_upload_bytes["default"] = self.piece_upload_bytes.get("default", 0) + pk.packed_bytes
-            return pcmcodec.decode_wire(self._upload(wire), layout, len(piece))
-        self.piece_upload_bytes["default"] = self.piece_upload_bytes.get("default", 0) + piece.nbytes
-        x = self._upload(piece)
+            self.piece_upload_bytes[key] = self.piece_upload_bytes.get(key, 0) + pk.packed_bytes
+            return pcmcodec.decode_wire(self._upload(wire, device), layout, len(piece))
+        # an incompressible piece goes raw: strictly fewer bytes (JAX's rule)
+        self.piece_upload_bytes[key] = self.piece_upload_bytes.get(key, 0) + piece.nbytes
+        x = self._upload(piece, device)
         return x.to(torch.float32) * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
-    def _model_chunks(self, pieces: "list[torch.Tensor]", is_44k: bool) -> "list[Dict[str, torch.Tensor]]":
-        """One model call on the windows of ``pieces`` (a (k*W, 43 844)
-        batch); the outputs come back per piece, trimmed, with the bend
-        matrix, which is frame-local, so per piece its (frames, 88, 51)
-        gather stays bounded whatever the recording's length."""
-        windows = []
-        with nmp.precision_scope(self.precision, self.device.type):
-            for x in pieces:
-                if is_44k:
-                    x = resample_ops.decimate2(x, halo=True, n_out=self.chunk_len, matrix=self._dec2)
-                windows.append(unfold_windows(x.float(), self.w))
-        batch = windows[0] if len(windows) == 1 else torch.cat(windows)
-        out = self.model(batch, self.precision, self.head_precision, self.conv_impl)
-        frames = self.w * FRAMES_PER_WINDOW
-        out = {k: v[:, TRIM : v.shape[1] - TRIM].reshape(len(pieces) * frames, v.shape[2]) for k, v in out.items()}
+    def _model_chunks(self, pieces: "list[list[torch.Tensor]]", is_44k: bool) -> "list[Dict[str, torch.Tensor]]":
+        """One model call per device on the windows of its rows of
+        ``pieces`` (a (k*W/N, 43 844) batch each; row r already lies on
+        devices[r]); the outputs come back per piece, trimmed, concatenated
+        in row order on devices[0], with the bend matrix, which is
+        frame-local, so per piece its (frames, 88, 51) gather stays bounded
+        whatever the recording's length."""
+        frames = self.w_local * FRAMES_PER_WINDOW
+        outs = []
+        for r, (dev, model) in enumerate(zip(self.devices, self._row_models)):
+            windows = []
+            with nmp.precision_scope(self.precision, dev.type):
+                for rows in pieces:
+                    x = rows[r]
+                    if is_44k:
+                        x = resample_ops.decimate2(x, halo=True, n_out=self.row_span, matrix=self._dec2[dev])
+                    windows.append(unfold_windows(x.float(), self.w_local))
+            batch = windows[0] if len(windows) == 1 else torch.cat(windows)
+            out = model(batch, self.precision, self.head_precision, self.conv_impl)
+            outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(len(pieces), frames, v.shape[2]) for k, v in out.items()})
         chunks = []
         for i in range(len(pieces)):
-            chunk = {k: v[i * frames : (i + 1) * frames] for k, v in out.items()}
+            if len(outs) == 1:
+                chunk = {k: v[i] for k, v in outs[0].items()}
+            else:
+                chunk = {k: torch.cat([o[k][i].to(self.device) for o in outs]) for k in outs[0]}
             chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
             chunks.append(chunk)
         return chunks
 
     @torch.inference_mode()
     def _forward(self, audio: np.ndarray, sample_rate: int):
-        """Upload every piece and run the model on groups of
-        ``compute_group`` pieces. Returns (device dict of (n_chunks*W*142, F)
-        "note", "onset", "contour" and int8 "bends", n_frames, n_chunks)."""
+        """Upload every piece's rows, each to its own device, and run the
+        model on groups of ``compute_group`` pieces. Returns (dict on
+        devices[0] of (n_chunks*W*142, F) "note", "onset", "contour" and
+        int8 "bends", n_frames, n_chunks)."""
         audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
         pieces = list(self._pieces(audio, is_44k, n_chunks))
-        packed = [None] * len(pieces)
-        if self._codec_enabled(audio.dtype):
-            # pack on worker threads: piece c+1 packs while piece c uploads
-            pool = self._packer_threads()
-            packed = [pool.submit(_pack_wire, piece) for piece in pieces]
+        codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
+        # pack on worker threads: piece c+1 packs while piece c uploads
+        pool = self._packer_threads() if any(codec) else None
+        packed = [[pool.submit(_pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
         chunks: list = []
         pending: list = []
-        for piece, future in zip(pieces, packed):
-            pending.append(self._upload_piece(piece, None if future is None else future.result()))
+        for rows, futures in zip(pieces, packed):
+            pending.append([
+                self._upload_piece(row, None if future is None else future.result(), dev, key)
+                for row, future, dev, key in zip(rows, futures, self.devices, self._row_keys)
+            ])
             if len(pending) == self.compute_group:
                 chunks += self._model_chunks(pending, is_44k)
                 pending = []

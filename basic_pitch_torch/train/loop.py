@@ -1,7 +1,7 @@
-"""Training loop: the train step on one device, LR scheduling, early
-stopping, checkpoints and resume.
+"""Training loop: the train step on one device or data-parallel over
+processes, LR scheduling, early stopping, checkpoints and resume.
 
-PyTorch counterpart of `basic_pitch_tpu/train/loop.py` on one device. The
+PyTorch counterpart of `basic_pitch_tpu/train/loop.py`. The
 reference's behaviour (`basic_pitch/train.py:35-168` there) is kept: Adam, per-head smoothed BCE (optionally the class-balanced onset
 loss), the unit-norm kernel constraint after each step, batch-norm moving
 averages at momentum 0.99 folded in after the step, ReduceLROnPlateau
@@ -15,6 +15,12 @@ int16 audio with sparse COO targets when the loader runs with
 stream) may replace int16 audio with its lossless codec form and trims the
 sparse targets for the wire; `upload_batch` ships it to the device and
 `materialize_batch` builds the dense float32 batch there.
+
+Data parallelism (`parallel/distributed.py`, one process per device): each
+process steps on its slice of the global batch with ``all_sum``, and the
+step equals one process stepping on the whole batch (see `train_step`).
+`fit` does so when the process group spans processes; only process 0 then
+writes checkpoints, train state and logs.
 """
 
 from __future__ import annotations
@@ -328,15 +334,23 @@ TRAIN_PRECISIONS = nmp.PRECISIONS
 precision_scope = nmp.precision_scope
 
 
+AllSum = Callable[[torch.Tensor], torch.Tensor]
+
+
 def loss_and_stats(
-    model: nmp.NMP, batch: Batch, config: TrainConfig, train: bool = True
+    model: nmp.NMP, batch: Batch, config: TrainConfig, train: bool = True, all_sum: Optional[AllSum] = None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, nmp.BatchStats]]:
     """Forward and losses of a materialized device batch: (total, per-head
     losses, batch statistics per BN layer). ``train`` selects train-mode
     batch norm and ``config.precision``; ``train=False`` is eval-mode batch
-    norm in float32."""
+    norm in float32. With ``all_sum`` (`parallel/distributed.all_sum`) the
+    batch is this process's slice: the batch norms take the global
+    statistics and the losses are this process's shares of the global
+    batch's."""
     # float32 outputs for the losses under every precision
-    outputs, stats = model.forward_and_stats(batch["audio"], train, precision=config.precision if train else "highest")
+    outputs, stats = model.forward_and_stats(
+        batch["audio"], train, precision=config.precision if train else "highest", all_sum=all_sum
+    )
     total, per_head = losses.total_loss(
         outputs,
         batch["targets"],
@@ -345,6 +359,7 @@ def loss_and_stats(
         weighted_onset=config.weighted_onset_loss,
         positive_weight=config.positive_onset_weight,
         no_contours=model.config.no_contours,
+        all_sum=all_sum,
     )
     return total, per_head, stats
 
@@ -373,31 +388,61 @@ def apply_update(
     update_bn_stats(model, batch_stats, config.bn_momentum)
 
 
-def _metrics(total: torch.Tensor, per_head: Dict[str, torch.Tensor]) -> Metrics:
-    return {"loss": total.detach(), **{f"loss_{k}": v.detach() for k, v in per_head.items()}}
-
-
-def train_step(model: nmp.NMP, optimizer: torch.optim.Optimizer, batch: Batch, config: TrainConfig) -> Metrics:
-    """One optimizer step on a device batch: materialize, train-mode forward,
-    losses, backward, Adam, unit-norm constraint, BN moving averages.
-    Returns the step's losses as 0-d device tensors (nothing waits for the
-    device)."""
-    batch = materialize_batch(batch)
-    with precision_scope(config.precision):
-        optimizer.zero_grad(set_to_none=True)
-        total, per_head, stats = loss_and_stats(model, batch, config)
-        total.backward()
-        apply_update(model, optimizer, stats, config)
-    return _metrics(total, per_head)
+def _metrics(total: torch.Tensor, per_head: Dict[str, torch.Tensor], all_sum: Optional[AllSum] = None) -> Metrics:
+    """The step's losses; with ``all_sum`` the processes' shares are summed
+    (one collective) into the global batch's losses, equal everywhere."""
+    values = [total.detach(), *(v.detach() for v in per_head.values())]
+    if all_sum is not None:
+        values = list(all_sum(torch.stack(values)).unbind())
+    return {"loss": values[0], **{f"loss_{k}": v for k, v in zip(per_head, values[1:])}}
 
 
 @torch.no_grad()
-def eval_step(model: nmp.NMP, batch: Batch, config: TrainConfig) -> Metrics:
-    """Validation losses of a device batch: eval-mode batch norm, float32."""
+def sum_gradients(model: nmp.NMP, all_sum: AllSum) -> None:
+    """Replace every parameter's gradient with its sum over processes (one
+    collective over the gradients laid end to end)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    summed = all_sum(torch.cat([g.reshape(-1) for g in grads]))
+    for g, s in zip(grads, summed.split([g.numel() for g in grads])):
+        g.copy_(s.view_as(g))
+
+
+def train_step(
+    model: nmp.NMP, optimizer: torch.optim.Optimizer, batch: Batch, config: TrainConfig, all_sum: Optional[AllSum] = None
+) -> Metrics:
+    """One optimizer step on a device batch: materialize, train-mode forward,
+    losses, backward, Adam, unit-norm constraint, BN moving averages.
+    Returns the step's losses as 0-d device tensors (nothing waits for the
+    device).
+
+    With ``all_sum`` (a differentiable sum over processes) ``batch`` is this
+    process's slice of the global batch, and the step equals one process
+    stepping on the whole batch: the batch norms normalise with the global
+    statistics (and fold those into the moving averages), each process's
+    loss is its share of the global loss (the shares sum to it), the
+    backward through ``all_sum`` carries every process's part of the
+    statistics' gradient, and the gradients are then summed over processes,
+    not averaged: the sum of the shares' gradients is the global loss's
+    gradient. Every process then applies the same update."""
+    batch = materialize_batch(batch)
+    with precision_scope(config.precision):
+        optimizer.zero_grad(set_to_none=True)
+        total, per_head, stats = loss_and_stats(model, batch, config, all_sum=all_sum)
+        total.backward()
+        if all_sum is not None:
+            sum_gradients(model, all_sum)
+        apply_update(model, optimizer, stats, config)
+    return _metrics(total, per_head, all_sum)
+
+
+@torch.no_grad()
+def eval_step(model: nmp.NMP, batch: Batch, config: TrainConfig, all_sum: Optional[AllSum] = None) -> Metrics:
+    """Validation losses of a device batch: eval-mode batch norm, float32.
+    With ``all_sum``, of the global batch whose slice ``batch`` is."""
     batch = materialize_batch(batch)
     with precision_scope("highest"):
-        total, per_head, _ = loss_and_stats(model, batch, config, train=False)
-    return _metrics(total, per_head)
+        total, per_head, _ = loss_and_stats(model, batch, config, train=False, all_sum=all_sum)
+    return _metrics(total, per_head, all_sum)
 
 
 def stack_batches(batches: Sequence[Batch]) -> Batch:
@@ -514,14 +559,30 @@ def fit(
     default, which raises without a GPU) or "cpu". Callbacks are called as
     ``cb(epoch, model, train_metrics, val_metrics)``. Returns the best
     parameters as a flat JAX-layout dict.
+
+    Over several processes (after `parallel/distributed.initialize`),
+    ``train_iter`` yields this process's slice of each global batch (the
+    loader's ``num_shards`` / ``shard_index``) and ``val_iter`` the same
+    host-global batches on every process, of which each process evaluates
+    its slice. The model starts from process 0's values, the validation
+    loss that drives the LR schedule and early stopping is process 0's, and
+    only process 0 writes checkpoints, the train state and logs and runs
+    the callbacks; ``output_dir`` is shared, as a resume reads it on every
+    process. Stacked (grouped) batches are single-process.
     """
+    from basic_pitch_torch.parallel import distributed
     from basic_pitch_torch.pipeline import resolve_device
     from basic_pitch_torch.utils import hostmem
 
     device = resolve_device(device)
     hostmem.tune_host_allocator()  # warm-heap reuse of batch buffers
+    is_main = distributed.process_index() == 0
+    all_sum = distributed.all_sum if distributed.spans_processes() else None
+    if not is_main:
+        log = lambda msg: None  # noqa: E731 - only process 0 logs
     output_dir = pathlib.Path(output_dir)
-    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    if is_main:
+        (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
     state_path = output_dir / TRAIN_STATE_NAME
 
     if init is not None:
@@ -551,6 +612,7 @@ def fit(
         early_stop.load_state(extra["early_stop"])
         set_learning_rate(optimizer, lr)
         log(f"resumed from {state_path} at epoch {start_epoch} (best_val={best_val:.4f})")
+    distributed.replicate(model)  # every process starts from process 0's values
 
     # on resume the best checkpoint (if any) beats the latest state
     best_ckpt = output_dir / "model.best.npz"
@@ -566,35 +628,43 @@ def fit(
         while steps_done < config.steps_per_epoch:
             batch = next(train_iter)
             stacked = is_stacked(batch)
+            if stacked and all_sum is not None:
+                raise ValueError("stacked (grouped) batches are single-process; feed per-step batches")
             if needs_upload(batch):
                 batch, _ = upload_batch(batch, device)
             if stacked:
                 metrics = multi_step(model, optimizer, batch, config)
                 steps_done += int(metrics["loss"].shape[0])
             else:
-                metrics = train_step(model, optimizer, batch, config)
+                metrics = train_step(model, optimizer, batch, config, all_sum)
                 steps_done += 1
             train_losses.append(metrics["loss"].reshape(-1))
         val_losses = []
         for _ in range(config.validation_steps):
             batch = next(val_iter)
+            if all_sum is not None:  # host-global and identical everywhere: take this process's slice
+                batch = distributed.local_slice(batch)
             if needs_upload(batch):
                 batch, _ = upload_batch(batch, device)
-            val_losses.append(eval_step(model, batch, config)["loss"])
+            val_losses.append(eval_step(model, batch, config, all_sum)["loss"])
 
         train_loss = float(np.mean(torch.cat(train_losses).cpu().numpy()))
-        val_loss = float(np.mean(torch.stack(val_losses).cpu().numpy()))
+        # process 0's value decides the schedule everywhere
+        val_loss = distributed.broadcast_value(float(np.mean(torch.stack(val_losses).cpu().numpy())), device)
         log(f"epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} lr={lr:.2e} ({time.time() - t0:.1f}s)")
 
         flat = params_io.to_jax_params(model.state_dict())
-        params_io.save_params(output_dir / "checkpoints" / f"model.{epoch:02d}.npz", flat)
+        if is_main:
+            params_io.save_params(output_dir / "checkpoints" / f"model.{epoch:02d}.npz", flat)
         if val_loss < best_val:
             best_val = val_loss
             best_params = flat
-            params_io.save_params(best_ckpt, best_params)
+            if is_main:
+                params_io.save_params(best_ckpt, best_params)
 
-        for cb in callbacks:
-            cb(epoch, model, {"loss": train_loss}, {"loss": val_loss})
+        if is_main:
+            for cb in callbacks:
+                cb(epoch, model, {"loss": train_loss}, {"loss": val_loss})
 
         lr, reduced = lr_plateau.step(val_loss, lr)
         if reduced:
@@ -602,18 +672,19 @@ def fit(
             log(f"  reducing learning rate to {lr:.2e}")
         stop = early_stop.step(val_loss)
 
-        save_train_state(
-            state_path,
-            model,
-            optimizer,
-            {
-                "epoch": epoch,
-                "best_val": float(best_val),
-                "lr": float(lr),
-                "lr_plateau": lr_plateau.state(),
-                "early_stop": early_stop.state(),
-            },
-        )
+        if is_main:
+            save_train_state(
+                state_path,
+                model,
+                optimizer,
+                {
+                    "epoch": epoch,
+                    "best_val": float(best_val),
+                    "lr": float(lr),
+                    "lr_plateau": lr_plateau.state(),
+                    "early_stop": early_stop.state(),
+                },
+            )
 
         if stop:
             log(f"  early stopping at epoch {epoch}")

@@ -5,9 +5,10 @@ A copy of `basic_pitch_tpu/utils/audio.py` (the port imports nothing of the
 JAX package): a RIFF/WAVE reader for PCM 8/16/24/32-bit and IEEE-float
 payloads, a PCM16 writer, channel mixdown, a Kaiser-windowed polyphase
 resampler (scipy's `resample_poly`) and an ffmpeg fallback for other
-containers. The JAX package's native C++ fast paths (fused WAV decode and
-mixdown, decimation) are not copied: the pure paths here agree with them to
-float32 rounding. `tests/test_torch_params.py` pins the copies equal.
+containers. As in the JAX package, `read_wav_mono` (fused decode and
+mixdown) and pure decimation in `resample` take the native host library
+(`basic_pitch_torch/native.py`) when it is built, and the numpy and scipy
+paths otherwise. `tests/test_torch_params.py` pins the copies equal.
 """
 
 from __future__ import annotations
@@ -124,8 +125,22 @@ def write_wav(path: "PathLike | object", samples: np.ndarray, sample_rate: int) 
 
 
 def read_wav_mono(path: PathLike) -> Tuple[np.ndarray, int]:
-    """Decode a WAV straight to float32 mono."""
-    samples, sample_rate = read_wav(path)
+    """Decode a WAV straight to float32 mono, through the native library's
+    fused decode and mixdown when it is built."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    header = _parse_wav_header(raw)
+    if header is not None:
+        audio_format, n_channels, sample_rate, bits, payload = header
+        # only formats the native decoder implements; anything else goes
+        # through the validating decoder, which raises WavFormatError
+        if n_channels >= 1 and audio_format in (WAVE_FORMAT_PCM, WAVE_FORMAT_IEEE_FLOAT):
+            from basic_pitch_torch import native
+
+            decoded = native.decode_pcm_mono(payload, bits, audio_format == WAVE_FORMAT_IEEE_FLOAT, n_channels)
+            if decoded is not None:
+                return decoded, sample_rate
+    samples, sample_rate = read_wav_bytes(raw, name=str(path))
     return to_mono(samples), sample_rate
 
 
@@ -190,9 +205,8 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
     Rational-ratio polyphase FIR with a Kaiser-windowed sinc prototype
     (beta=14.77, 64 zero crossings per phase), ceil(len * ratio) output
-    samples. The JAX package takes a native C++ path for pure decimation;
-    this copy always uses scipy, whose float64 result agrees to float32
-    rounding.
+    samples. Pure decimation takes the native library when it is built
+    (`native.resample_poly`), as the JAX package does; scipy otherwise.
     """
     if sr_in == sr_out:
         return np.asarray(x, dtype=np.float32)
@@ -204,6 +218,12 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     up, down = sr_out // g, sr_in // g
     half_len = 64 * max(up, down)
     taps = firwin(2 * half_len + 1, min(1.0 / up, 1.0 / down), window=("kaiser", 14.77))
+    if up == 1:
+        from basic_pitch_torch import native
+
+        fast = native.resample_poly(np.asarray(x, np.float32), up, down, taps, int(np.ceil(len(x) / down)))
+        if fast is not None:
+            return fast
     y = resample_poly(np.asarray(x, dtype=np.float64), up, down, window=taps)
     n_out = int(np.ceil(len(x) * sr_out / sr_in))
     if len(y) < n_out:

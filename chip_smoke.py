@@ -11,7 +11,8 @@ Phases, each fatal on failure:
      the host's CPU model (also printed by the serving phase), torch/CUDA
      versions, and the build of
      every native source from csrc/, all compilers started together (nvcc
-     sm_90a for the kernels, g++ for the codec's host packer);
+     sm_90a for the kernels, g++ for the codec's host packer and the native
+     host library);
   2. each kernel against its plain PyTorch version on the card. The greedy
      decode: seeded fuzz cases, adversarial cases for the kernel's batched
      commit (tests/torch_decode_cases.py, with its re-walk counter), the
@@ -100,10 +101,35 @@ Phases, each fatal on failure:
      basic_pitch_torch/build/) with its top 5 CUDA kernels, the device's
      busy share and the peak allocated memory; the trace must hold CUDA
      kernels, greedy_decode among them (its launch counted as "measure");
-  9. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
+  9. parallel and native: the transcriber over ["cuda:0", "cuda:0"] (the
+     card's host has one GPU, so a repeated device is the list it can run)
+     at W = 128 with the shipped weights, on the 8-voice 60 s mix and the
+     60 s 44.1 kHz int16 recording: events and posteriorgrams equal bit
+     for bit to one device at 64 windows (the shards' model batch), and
+     against one device at 128 windows, whose cuDNN kernels round apart,
+     posteriorgrams within 1e-3 (the card read 2.81e-4) and events by the
+     one-flip rule (the amplitude difference printed); one greedy_decode launch per recording
+     (counted as "parallel"), each shard's upload bytes at most the single
+     device's / 2 plus the halo of each chunk, and forced codec launching
+     pcm_decode once per shard row per chunk ("parallel_codec"); the wall
+     of the sharded run against the single device's. Then data-parallel
+     training: two `parallel.selfcheck` processes with gloo, both on cuda:0
+     (NCCL refuses two ranks on one GPU), against one process on the same
+     global batch of 16 (each step, dense and sparse, from the initial
+     parameters: losses within 1e-5 relative, gradients by the training
+     phase's rule, 1e-3 of each tensor's largest and 1e-6 for the
+     pre-batch-norm biases, and parameters within 1e-3 wherever the
+     gradient exceeds 1e-3 of its tensor's largest: Adam moves an element
+     whose gradient is float32 noise by +-lr either way), each subprocess
+     under a timeout, and one step in a world of one NCCL process. Then the native host library: WAV decode at 16/24/32-bit and
+     float, decimation 44.1 -> 22.05 kHz and CRC32C over the phase-8
+     records, each bit-equal to the numpy path, with MB/s of both beside
+     the card's name and power limit and the host CPU; a call that took
+     the numpy path fails the phase;
+  10. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
      its launches on the paths driven (their sum, the split beside it), its
      error against the plain version and its times;
-  10. as the last line, {"ok": true, "device": {...}}.
+  11. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -1492,10 +1518,10 @@ def trace_summary(path: pathlib.Path, region: str) -> dict:
     }
 
 
-def data_phase(smi: str) -> dict:
+def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
     """The data -> score -> measure path on the card (see the module
     docstring, phase 8). Returns each kernel's launches in the traced
-    transcribe."""
+    transcribe, and the records of the built shards."""
     import tempfile
 
     import torch
@@ -1662,7 +1688,294 @@ def data_phase(smi: str) -> dict:
     )
     print(f"top 5 CUDA kernels by device time [{smi}]: {top}")
     print(f"data phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, records
+
+
+def write_pcm_wav(path: pathlib.Path, samples: np.ndarray, sr: int, bits: int, is_float: bool) -> None:
+    """Mono WAV of float samples in [-1, 1): IEEE float32, or PCM at 16, 24
+    or 32 bits (the samples scaled to full scale and rounded)."""
+    x = np.asarray(samples, np.float64)
+    if is_float:
+        payload = x.astype("<f4").tobytes()
+    else:
+        v = np.clip(np.round(x * 2.0 ** (bits - 1)), -(2 ** (bits - 1)), 2 ** (bits - 1) - 1).astype(np.int64)
+        if bits == 24:
+            payload = (v & 0xFFFFFF).astype("<u4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+        else:
+            payload = v.astype(f"<i{bits // 8}").tobytes()
+    block = bits // 8
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 36 + len(payload)) + b"WAVE")
+        fh.write(b"fmt " + struct.pack("<IHHIIHH", 16, 3 if is_float else 1, 1, sr, sr * block, block, bits))
+        fh.write(b"data" + struct.pack("<I", len(payload)) + payload)
+
+
+def sharded_phase(smi: str, tr: Any, poly_audio: np.ndarray, pcm44: np.ndarray) -> dict:
+    """Window-parallel transcription over ["cuda:0", "cuda:0"] (the card's
+    host has one GPU, so a repeated device is the list it can run) against
+    the single-device transcriber `tr` (see the module docstring, phase 9).
+    Returns each kernel's launches on the sharded runs."""
+    import torch
+
+    from basic_pitch_torch import pipeline
+    from basic_pitch_torch.decode import greedy_kernel
+    from basic_pitch_torch.ops import pcmcodec
+
+    t_phase = time.perf_counter()
+    devices = ["cuda:0", "cuda:0"]
+    sharded = pipeline.StreamingTranscriber(devices=devices, windows_per_chunk=128)
+    # the single device at the shards' model batch (64 windows) computes
+    # every window with the same kernels: the sharded run must equal it bit
+    # for bit; against `tr` (128 windows) cuDNN's batch-64 and batch-128
+    # kernels round apart (the quietest-CQT-bin limit, PERF.md §2)
+    single64 = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=64)
+    inputs = [("8-voice 60 s mix, 22.05 kHz float32", poly_audio, SR), ("60 s at 44.1 kHz int16", pcm44, 2 * SR)]
+    refs = [tr.transcribe(y, rate) for _, y, rate in inputs]
+    refs64 = [single64.transcribe(y, rate) for _, y, rate in inputs]
+    for _, y, rate in inputs:
+        sharded.transcribe(y, rate)  # first calls at 64 windows: cuDNN and the allocator set up
+    torch.cuda.synchronize()
+    greedy_kernel.launches = pcmcodec.launches = 0
+    events = [sharded.transcribe(y, rate) for _, y, rate in inputs]
+    launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
+    if launches["greedy_decode"] != len(inputs):
+        raise AssertionError(f"the sharded path launched greedy_decode {launches['greedy_decode']} times for {len(inputs)} recordings")
+    for (name, _, _), ev, ref, ref64 in zip(inputs, events, refs, refs64):
+        if ev != ref64:
+            raise AssertionError(f"sharded [{name}]: events differ from the single device's at 64 windows")
+        if [e[:3] for e in ev] == [e[:3] for e in ref]:
+            amp = max((abs(a[3] - b[3]) for a, b in zip(ev, ref)), default=0.0)
+            verdict = f"starts, ends and pitches equal, amplitudes within {amp:.3g}"
+        else:
+            verdict = f"one-flip rule, {events_agree(ev, ref)} of {len(ref)} matched"
+        print(f"sharded [{name}]: {len(ev)} events, identical to the single device at 64 windows; against 128 windows "
+              f"({len(ref)} events): {verdict}")
+    post_sharded = sharded.posteriorgrams(poly_audio, SR)
+    post64 = single64.posteriorgrams(poly_audio, SR)
+    post_single = tr.posteriorgrams(poly_audio, SR)
+    same = {k: float(np.abs(post_sharded[k] - post64[k]).max()) for k in post64}
+    diffs = {k: float(np.abs(post_sharded[k] - post_single[k]).max()) for k in post_single}
+    print(f"sharded posteriorgrams [8-voice mix]: max abs diff against the single device at 64 windows "
+          f"{json.dumps(same)} (must be 0), at 128 windows {json.dumps(diffs)} (bound 1e-3; 2.81e-4 read on the card)")
+    if max(same.values()) != 0.0 or max(diffs.values()) > 1e-3:
+        raise AssertionError(f"sharded posteriorgrams differ: {same} at 64 windows, {diffs} at 128")
+
+    # each shard uploads its own rows: at most the single device's raw bytes
+    # / N plus the halo of each chunk (twice the overlap and the decimator's
+    # halos at 44.1 kHz)
+    single_raw = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, pcm_transport="raw")
+    sharded.piece_upload_bytes.clear()
+    sharded.transcribe(pcm44, 2 * SR)
+    single_raw.transcribe(pcm44, 2 * SR)
+    per_shard = dict(sharded.piece_upload_bytes)
+    total_single = sum(single_raw.piece_upload_bytes.values())
+    n_chunks = sharded._geometry(pcm44, 2 * SR)[2]
+    bound = total_single / len(devices) + n_chunks * 2 * (pipeline.OVERLAP + pipeline._DEC_HALO) * pcm44.itemsize
+    print(f"upload bytes per shard [60 s at 44.1 kHz int16]: {json.dumps(per_shard)}; single device {total_single} B; "
+          f"bound {bound:.0f} B (1/{len(devices)} + the halo of {n_chunks} chunk(s))")
+    keys = [f"{pipeline.resolve_device(d)}/{r}" for r, d in enumerate(devices)]
+    if sorted(per_shard) != keys or max(per_shard.values()) > bound:
+        raise AssertionError(f"per-shard uploads {per_shard} break the bound {bound:.0f} B")
+
+    # forced codec: one pcm_decode launch per shard row per chunk
+    sharded_codec = pipeline.StreamingTranscriber(devices=devices, windows_per_chunk=128, pcm_transport="codec")
+    sharded_codec.transcribe(pcm44, 2 * SR)
+    torch.cuda.synchronize()
+    greedy_kernel.launches = pcmcodec.launches = 0
+    codec_events = sharded_codec.transcribe(pcm44, 2 * SR)
+    codec_launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
+    rows = n_chunks * len(devices)
+    # the JAX rule: a row goes packed when that is smaller than the row; this
+    # recording's rows all are, so every row must launch the kernel
+    host_rows = [r for piece in sharded_codec._pieces(pcm44, True, n_chunks) for r in piece]
+    packed_rows = sum(pcmcodec.pack(r).packed_bytes < r.nbytes for r in host_rows)
+    print(f"sharded codec run [60 s at 44.1 kHz int16]: launches {json.dumps(codec_launches)} for {rows} shard rows "
+          f"({packed_rows} pack smaller than raw); upload bytes {json.dumps(sharded_codec.piece_upload_bytes)}")
+    if codec_launches != {"greedy_decode": 1, "pcm_decode": packed_rows} or packed_rows != rows:
+        raise AssertionError(f"the codec run launched {codec_launches}, expected one greedy_decode and {rows} pcm_decode")
+    if codec_events != events[1]:
+        raise AssertionError("the lossless codec changed the sharded events")
+
+    walls = {"single": [], "sharded": []}
+    for _ in range(3):
+        for name, t in (("single", tr), ("sharded", sharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.transcribe(poly_audio, SR)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(
+        f"wall per recording [8-voice 60 s mix, W = 128, {smi}]: single device {med['single']:.1f} ms, "
+        f"sharded over {devices} {med['sharded']:.1f} ms ({med['sharded'] / med['single']:.2f}x; median of 3, "
+        f"in turns; runs {json.dumps({k: [round(x, 1) for x in v] for k, v in walls.items()})})"
+    )
+    print(f"sharded transcription took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "greedy_decode": launches["greedy_decode"] + codec_launches["greedy_decode"],
+        "pcm_decode_auto": launches["pcm_decode"],
+        "pcm_decode_codec": codec_launches["pcm_decode"],
+    }
+
+
+def dp_errors(one: dict, two: dict, step: str) -> Tuple[dict, float, float]:
+    """Two self-check dumps after ``step``: (each gradient's error by the
+    training phase's rule, `grad_errors`; the largest parameter difference
+    over the elements whose gradient exceeds 1e-3 of its tensor's largest,
+    and over every element of the parameters without a gradient, the moving
+    statistics; the largest parameter difference anywhere). Adam's first
+    step moves every element by about lr whatever its gradient's size, so
+    an element whose gradient lies within float32 rounding of zero may step
+    either way: up to 2 lr apart, which only the third number includes."""
+    prefix = f"{step}/grad/"
+    g_one = {k[len(prefix) :]: v for k, v in one.items() if k.startswith(prefix)}
+    g_two = {k[len(prefix) :]: v for k, v in two.items() if k.startswith(prefix)}
+    errors = grad_errors(g_two, g_one)
+    strict = anywhere = 0.0
+    for key in (k for k in one if k.startswith(f"{step}/") and not k.startswith(prefix)):
+        name = key[len(step) + 1 :]
+        diff = np.abs(one[key] - two[key])
+        anywhere = max(anywhere, float(diff.max()))
+        if name in PRE_BN_BIASES:
+            continue  # zero gradient in exact arithmetic: held by its gradient alone
+        if name in g_one:
+            g = np.abs(g_one[name])
+            diff = diff[g > 1e-3 * g.max()]
+        strict = max(strict, float(diff.max()) if diff.size else 0.0)
+    return errors, strict, anywhere
+
+
+def distributed_phase(smi: str) -> None:
+    """Data-parallel training on the card: two self-check processes with
+    gloo, both on cuda:0 (NCCL refuses two ranks on one GPU), against one
+    process on the same global batch of 16; then one step in a world of one
+    NCCL process, so NCCL's set-up and all-reduce run on the card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from basic_pitch_torch.models import nmp
+    from basic_pitch_torch.parallel import distributed, selfcheck
+    from basic_pitch_torch.train import loop as train_loop
+
+    t_phase = time.perf_counter()
+    batch = 16
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+        one = selfcheck.run(0, 1, 0, batch, device="cuda", dump=str(tmp / "one.npz"), time_steps=5)
+        t0 = time.perf_counter()
+        two = selfcheck.launch(2, batch, device="cuda", backend="gloo", timeout=240,
+                               extra=["--dump", str(tmp / "two.npz"), "--time-steps", "5"])
+        two_wall = time.perf_counter() - t0
+        dump_one, dump_two = dict(np.load(tmp / "one.npz")), dict(np.load(tmp / "two.npz"))
+    for kind in ("loss_dense", "loss_sparse"):
+        if two[0][kind] != two[1][kind]:
+            raise AssertionError(f"the two processes disagree on {kind}: {two[0][kind]} vs {two[1][kind]}")
+        rel = abs(two[0][kind] - one[kind]) / abs(one[kind])
+        print(f"two processes (gloo, cuda:0 twice) against one [{kind}, global batch {batch}]: "
+              f"{two[0][kind]:.7f} vs {one[kind]:.7f}, rel diff {rel:.3g} (bound 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"{kind}: two processes differ from one by {rel} relative")
+    for step in ("dense", "sparse"):
+        errors, strict, anywhere = dp_errors(dump_one, dump_two, step)
+        bad = grad_violations(0.0, errors)
+        worst = max((k for k in errors if k not in PRE_BN_BIASES), key=errors.get)
+        print(f"{step} step, two processes against one: gradients within {errors[worst]:.3g} of their tensor's "
+              f"largest (worst {worst}; bound 1e-3), pre-batch-norm biases' gradients differ by "
+              f"{max(errors[k] for k in PRE_BN_BIASES):.3g} (bound 1e-6); parameters after it within {strict:.3g} "
+              f"where the gradient exceeds 1e-3 of its tensor's largest (bound 1e-3), {anywhere:.3g} anywhere "
+              f"(Adam moves every element by about lr a step, so where a gradient is float32 noise two runs part by up to 2 lr per step)")
+        # each step starts from the initial parameters in both runs
+        if bad or not strict <= 1e-3:
+            raise AssertionError(f"{step}: {bad}, parameters differ by {strict} where the gradient is not noise")
+    print(f"train step at global batch {batch} [{smi}]: one process {one['step_ms']:.2f} ms, two processes "
+          f"(gloo, cuda:0 twice, {batch // 2} each) {two[0]['step_ms']:.2f} / {two[1]['step_ms']:.2f} ms (median of 5, host "
+          f"clock, synchronised); the two-process run took {two_wall:.1f} s with start-up")
+
+    # one NCCL process: the same step with and without the process group's sums
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{selfcheck.free_port()}", world_size=1, rank=0)
+    try:
+        dev = torch.device("cuda", 0)
+        config = train_loop.TrainConfig()
+        models = [nmp.init_params(nmp.NMP(), torch.Generator().manual_seed(0)).to(dev) for _ in range(2)]
+        opts = [train_loop.make_optimizer(m, config) for m in models]
+        dense = train_loop.upload_batch(selfcheck.synthetic_global_batch(batch), dev)[0]
+        plain = float(train_loop.train_step(models[0], opts[0], dense, config)["loss"])
+        summed = float(train_loop.train_step(models[1], opts[1], dense, config, distributed.all_sum)["loss"])
+        rel = abs(summed - plain) / abs(plain)
+        print(f"NCCL world of one ({tdist.get_backend()}): loss {summed:.7f} through the all-reduce against {plain:.7f} "
+              f"without, rel diff {rel:.3g} (bound 1e-6)")
+        if tdist.get_backend() != "nccl" or not rel <= 1e-6:
+            raise AssertionError(f"the NCCL step differs from the plain step by {rel} relative")
+    finally:
+        tdist.destroy_process_group()
+    print(f"distributed training took {time.perf_counter() - t_phase:.1f} s")
+
+
+def native_phase(smi: str, records: List[bytes]) -> None:
+    """The native host library against the numpy paths, bit for bit, with
+    each one's rate (see the module docstring, phase 9). Fails if a call
+    took the numpy path."""
+    import tempfile
+
+    from basic_pitch_torch import native
+    from basic_pitch_torch.data import tfrecord
+    from basic_pitch_torch.utils import audio as audio_io
+
+    if not native.available():
+        raise AssertionError("the native host library did not build")
+    x = tone_mix(2 * SR, 60.0, seed=104)[0]
+    rates = {}
+
+    def served(name: str, fn: Callable[[], Any]) -> Tuple[Any, float]:
+        before = native.calls[name]
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        if native.calls[name] != before + 1:
+            raise AssertionError(f"{name} took the numpy path")
+        return out, seconds
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        for bits, is_float in ((16, False), (24, False), (32, False), (32, True)):
+            path = pathlib.Path(tmp_name) / f"{bits}{'f' if is_float else ''}.wav"
+            write_pcm_wav(path, x, 2 * SR, bits, is_float)
+            mb = path.stat().st_size / 1e6
+            (got, _), t_native = served("decode_pcm_mono", lambda: audio_io.read_wav_mono(path))
+            t0 = time.perf_counter()
+            plain = audio_io.to_mono(audio_io.read_wav_bytes(path.read_bytes())[0])
+            t_plain = time.perf_counter() - t0
+            if got.tobytes() != plain.tobytes():
+                raise AssertionError(f"WAV {bits}-bit{' float' if is_float else ''}: native decode differs from numpy")
+            rates[f"wav{bits}{'f' if is_float else ''}"] = (mb / t_native, mb / t_plain)
+    got, t_native = served("resample_poly", lambda: audio_io.resample(x, 2 * SR, SR))
+    saved = native.resample_poly
+    native.resample_poly = lambda *args: None  # the scipy path
+    try:
+        t0 = time.perf_counter()
+        plain = audio_io.resample(x, 2 * SR, SR)
+        t_plain = time.perf_counter() - t0
+    finally:
+        native.resample_poly = saved
+    if got.tobytes() != plain.tobytes():
+        raise AssertionError("native decimation differs from scipy")
+    rates["decimate 44.1->22.05 kHz"] = (x.nbytes / 1e6 / t_native, x.nbytes / 1e6 / t_plain)
+    mb = sum(len(r) for r in records) / 1e6
+    before = native.calls["crc32c"]
+    t0 = time.perf_counter()
+    crcs = [tfrecord.crc32c(r) for r in records]
+    t_native = time.perf_counter() - t0
+    if native.calls["crc32c"] != before + len(records):
+        raise AssertionError("crc32c took the table loop")
+    t0 = time.perf_counter()
+    plain_crcs = [tfrecord.crc32c_table(r) for r in records]
+    t_plain = time.perf_counter() - t0
+    if crcs != plain_crcs:
+        raise AssertionError("native CRC32C differs from the table loop")
+    rates[f"crc32c ({len(records)} phase-8 records)"] = (mb / t_native, mb / t_plain)
+    print(f"native host paths [{smi}; host CPU {host_cpu()}], MB/s native / numpy, bit-equal: "
+          + "; ".join(f"{k} {a:.1f} / {b:.1f} ({a / b:.1f}x)" for k, (a, b) in rates.items()))
+    print(f"native calls this process: {json.dumps(native.calls)}")
 
 
 def main() -> int:
@@ -1691,7 +2004,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     # every native source at once: one compiler process each
     t0 = time.perf_counter()
-    names = ("greedy_decode", "pcm_decode", "pcm_pack")
+    names = ("greedy_decode", "pcm_decode", "pcm_pack", "bp_native")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for name, path in zip(names, pool.map(_build.build, names)):
             print(f"built {name} ({path.name})")
@@ -1959,13 +2272,21 @@ def main() -> int:
     codec_by_path = {"codec_transport": codec_path["pcm_decode"], "train_codec_batch": train_codec}
 
     # ---------------- phase 8: data, scoring and measurement ----------------
-    measured = data_phase(smi)
+    measured, records = data_phase(smi)
     by_path["measure"] = measured["greedy_decode"]
     codec_by_path["measure"] = measured["pcm_decode"]
+
+    # ---------------- phase 9: parallel and native ----------------
+    sharded = sharded_phase(smi, tr, poly_audio, recordings[1][1])
+    by_path["parallel"] = sharded["greedy_decode"]
+    codec_by_path["parallel"] = sharded["pcm_decode_auto"]
+    codec_by_path["parallel_codec"] = sharded["pcm_decode_codec"]
+    distributed_phase(smi)
+    native_phase(smi, records)
     print(f"greedy_decode launches by path: {json.dumps(by_path)}")
     print(f"pcm_decode launches by path: {json.dumps(codec_by_path)}")
 
-    # ---------------- phase 9: kernels ----------------
+    # ---------------- phase 10: kernels ----------------
     kernels = [{
         "name": "greedy_decode",
         "route": "cuda",
@@ -1996,7 +2317,7 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels}))
 
-    # ---------------- phase 10: result ----------------
+    # ---------------- phase 11: result ----------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -535,8 +535,13 @@ def test_train_cli_reads_built_shards(tmp_path):
 
     guitarset_corpus(tmp_path / "corpus", n=3, seconds=3.0)
     built = tmp_path / "built"
+    # a seeded split: the orphan track takes part in the random assignment
+    # and is dropped after it, so an unseeded split leaves the validation
+    # split empty whenever the orphan draws its one slot
     t_download.main(["guitarset", "--source", str(tmp_path / "corpus"), "--destination", str(built),
-                     "--timestamped", "false", "--train-percent", "0.6", "--validation-percent", "0.3"])
+                     "--timestamped", "false", "--train-percent", "0.6", "--validation-percent", "0.3",
+                     "--split-seed", "1"])
+    assert list((built / "guitarset" / "splits" / "validation").glob("*.tfrecord"))
     shards = sorted(str(p) for p in (built / "guitarset" / "splits" / "train").glob("*.tfrecord"))
     assert shards
     assert j_loader._dataset_files(str(built), "GuitarSet", "train") == []

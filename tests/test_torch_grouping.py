@@ -67,13 +67,13 @@ def test_grouped_upload_reuses_the_pinned_buffer_safely():
     real = tr._model_chunks
 
     def spy(pieces, is_44k):
-        seen.append([p.clone() for p in pieces])
+        seen.append([rows[0].clone() for rows in pieces])  # one device: one row per piece
         return real(pieces, is_44k)
 
     tr._model_chunks = spy
     tr.posteriorgrams(y, SR)
     assert [len(group) for group in seen] == [2, 2, 1]
-    hosts = list(tr._pieces(np.ascontiguousarray(y), False, 5))
+    hosts = [rows[0] for rows in tr._pieces(np.ascontiguousarray(y), False, 5)]
     flat = [p for group in seen for p in group]
     for got, want in zip(flat, hosts):
         np.testing.assert_array_equal(got.numpy(), want)

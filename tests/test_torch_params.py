@@ -590,6 +590,15 @@ def test_scans_cover_the_data_slice():
     assert set(DATA_SLICE) <= scanned
 
 
+PARALLEL_SLICE = ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py", "parallel/selfcheck.py",
+                  "native.py", "device.py")
+
+
+def test_scans_cover_the_parallel_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert set(PARALLEL_SLICE) <= scanned
+
+
 def _code(path: pathlib.Path) -> str:
     """A module's code without its docstrings, with the JAX package's name
     read as the port's: equal for a copy, whatever its comments say."""
@@ -736,7 +745,7 @@ def test_importing_the_port_loads_no_jax():
         "if 'tensorflow' not in sys.modules:\n"
         "    assert not [k for k in sys.modules if k.split('.')[0] in ROOTS]\n"
         "assert 'basic_pitch_torch.pipeline' in sys.modules\n"
-        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE + DATA_SLICE!r})\n"
+        f"assert all('basic_pitch_torch.' + m[:-3].replace('/', '.').removesuffix('.__init__') in sys.modules for m in {TRAINING_SLICE + SETTINGS_SLICE + DATA_SLICE + PARALLEL_SLICE!r})\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -4,8 +4,9 @@ Its parser carries every flag of the JAX train CLI, with the same
 destinations, types, choices and defaults, plus ``--device``. One epoch of
 one step runs on ``--device cpu`` and writes JAX-layout checkpoints that the
 JAX package loads; rerunning with more epochs resumes; without
-``--device cpu`` and with no GPU it raises; multi-process flags name the
-slice that will bring them.
+``--device cpu`` and with no GPU it raises; the multi-process flags need a
+coordinator for several processes (`tests/test_torch_distributed.py` trains
+two).
 """
 
 import argparse
@@ -113,9 +114,20 @@ def test_needs_a_gpu_unless_told_cpu(source, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--num-processes", "2"], ["--coordinator", "localhost:1234"]])
-def test_multi_process_flags_name_the_parallel_slice(source, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        t_train.main(_args(source, tmp_path, 1, "--device", "cpu", *flags))
+def test_multi_process_flags_name_the_parallel_slice(source, tmp_path, flags, monkeypatch):
+    """The multi-process flags are the parallel slice's
+    (`parallel/distributed.py`, `tests/test_torch_distributed.py` runs two
+    processes): several processes without a coordinator address (nor
+    MASTER_ADDR / MASTER_PORT) raise before any work; a coordinator for one
+    process is a no-op, as in JAX, and the run trains on its own."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    if "--num-processes" in flags:
+        with pytest.raises(ValueError, match="coordinator address"):
+            t_train.main(_args(source, tmp_path, 1, "--device", "cpu", *flags))
+        assert not (tmp_path / "out").exists()
+    else:
+        run_dir = t_train.main(_args(source, tmp_path / "out", 1, "--device", "cpu", *flags))
+        assert (run_dir / "checkpoints" / "model.00.npz").exists()
 
 
 def test_needs_a_dataset(tmp_path, capsys):
