@@ -86,6 +86,9 @@ def initialize(
 
 
 def shutdown() -> None:
+    """Leave the process group. Nothing of the port holds the group past
+    this (see `_AllSum`), so its threads (gloo's loops, process 0's TCPStore
+    server) end here and not while the interpreter exits."""
     if tdist.is_initialized():
         tdist.destroy_process_group()
 
@@ -125,13 +128,36 @@ def local_slice(tree: Any, global_batch_size: Optional[int] = None) -> Any:
     return mesh.map_batch(tree, slc)
 
 
+class _AllSum(torch.autograd.Function):
+    """all_reduce(SUM) over the default process group, with the same sum as
+    its backward. The group is looked up when the collective runs and never
+    stored, so nothing keeps it past `shutdown`.
+
+    `torch.distributed.nn.functional` binds ``group.WORLD`` as a default
+    argument of ten functions when it is first imported: imported after the
+    group exists, it keeps the group alive after `destroy_process_group`,
+    with its gloo threads and (in process 0) the TCPStore server, until the
+    interpreter tears them down at exit, where the process can abort
+    ("terminate called without an active exception"). Its successor,
+    `torch.distributed._functional_collectives.all_reduce`, also keeps the
+    group alive after `destroy_process_group`."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor) -> torch.Tensor:
+        y = x.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(y, op=tdist.ReduceOp.SUM)
+        return y
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> torch.Tensor:
+        return _AllSum.apply(grad)
+
+
 def all_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over every process, differentiable: its backward
     sums the incoming gradients over every process in turn, which is the
     gradient of a loss that is the sum of the processes' shares."""
-    from torch.distributed.nn import functional as dist_fn
-
-    return dist_fn.all_reduce(x, op=tdist.ReduceOp.SUM)
+    return _AllSum.apply(x)
 
 
 def replicate(obj: Any, src: int = 0) -> Any:

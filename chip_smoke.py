@@ -23,11 +23,15 @@ Phases, each fatal on failure:
      counters. The codec decode (`pcm_decode`), bit for bit against its
      plain version and pcm / 32768: fixed orders 1-3, LPC and the default
      mode, width ladders reaching every k of KSET, int16 extremes, the LPC
-     fuzz, lengths from 1 sample to one 44.1 kHz piece; its time against the
-     plain version, the pinned copy of the raw int16 bytes and its bound (the
-     bytes the kernel touches) at a full 128-window piece that the codec path
-     decodes (the 10 min recording's last chunk, ~1.39x), in its default mode
-     and forced to LPC, and at a noisy full chunk that the path sends raw;
+     fuzz, lengths from 1 sample to one 44.1 kHz piece, and the kernel's
+     tiling cases (tests/torch_codec_cases.py); its own device time (N
+     launches in a CUDA graph over buffers larger than the L2), the
+     wrapper's time, the plain version's, the pinned copy of the raw int16
+     bytes, its bytes bound (the bytes the kernel touches) and, for LPC, its
+     chain bound (248 dependent steps at the latency measured on the card),
+     at a full 128-window piece that the codec path decodes (the 10 min
+     recording's last chunk, ~1.39x), in its default mode and forced to LPC,
+     and at a noisy full chunk that the path sends raw;
   3. the main path at full width: StreamingTranscriber(device="cuda",
      windows_per_chunk=128) with the shipped weights transcribes ~60 s
      recordings (22.05 kHz float32, 44.1 kHz int16, and a batch of 4); the
@@ -100,7 +104,9 @@ Phases, each fatal on failure:
      transcribe (`utils/profiling.py`, written under
      basic_pitch_torch/build/) with its top 5 CUDA kernels, the device's
      busy share and the peak allocated memory; the trace must hold CUDA
-     kernels, greedy_decode among them (its launch counted as "measure");
+     kernels, greedy_decode among them (its launch counted as "measure"),
+     and no pcm_decode launch (the transport probe is refreshed before the
+     trace and no call starts a re-probe);
   9. parallel and native: the transcriber over ["cuda:0", "cuda:0"] (the
      card's host has one GPU, so a repeated device is the list it can run)
      at W = 128 with the shipped weights, on the 8-voice 60 s mix and the
@@ -906,11 +912,17 @@ def width_ladder(order: int, widths: List[int], blocks: int = 80) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def codec_cases(piece: np.ndarray) -> List[Tuple[str, np.ndarray, dict]]:
-    """The pcm_decode cases: every fixed order, LPC and the default mode on
-    the JAX package's codec test signals, width ladders that reach every k
-    of KSET, int16 extremes, the adversarial LPC fuzz, and lengths from 256
-    samples to one 44.1 kHz piece of a 128-window chunk."""
+def codec_cases(piece: np.ndarray) -> List[Tuple[str, np.ndarray, Any]]:
+    """The pcm_decode cases as (name, pcm, packed): every fixed order, LPC
+    and the default mode on the JAX package's codec test signals, width
+    ladders that reach every k of KSET, int16 extremes, the adversarial LPC
+    fuzz, lengths from 256 samples to one 44.1 kHz piece of a 128-window
+    chunk, and the kernel's tiling cases (tests/torch_codec_cases.py: one
+    block, groups of one to three rows so that group edges fall inside a
+    CTA, block counts off a multiple of 32, group starts off 16 bytes)."""
+    from basic_pitch_torch.ops import pcmcodec
+    from torch_codec_cases import tiling_cases
+
     rng = np.random.RandomState(7)
     sine = (np.sin(np.arange(60000) * 0.07) * 18000).astype(np.int16)
     signals = {
@@ -925,7 +937,7 @@ def codec_cases(piece: np.ndarray) -> List[Tuple[str, np.ndarray, dict]]:
     cases = []
     for name, pcm in signals.items():
         for kw in ({"order": 1}, {"order": 2}, {"order": 3}, {"mode": "lpc"}, {}):
-            cases.append((name, pcm, kw))
+            cases.append((f"{name} {kw}", pcm, kw))
     cases.append(("ladder k=2..17", width_ladder(1, list(range(2, 18))), {"order": 1}))
     cases.append(("ladder k=5..19", width_ladder(3, list(range(5, 20))), {"order": 3}))
     cases.append(("full-scale alternation", np.tile(np.array([-32768, 32767], np.int16), 20000), {}))
@@ -950,7 +962,7 @@ def codec_cases(piece: np.ndarray) -> List[Tuple[str, np.ndarray, dict]]:
     cases.append((f"22.05 kHz piece ({len(piece)}), lpc", piece, {"mode": "lpc"}))
     piece44 = np.concatenate([np.repeat(piece, 2), piece[:256]])
     cases.append((f"44.1 kHz piece ({len(piece44)})", piece44, {}))
-    return cases
+    return [(name, pcm, pcmcodec.pack(pcm, **kw)) for name, pcm, kw in cases] + tiling_cases()
 
 
 def pcm_decode_bytes(packed: Any, n_out: int) -> int:
@@ -967,13 +979,90 @@ def pcm_decode_bytes(packed: Any, n_out: int) -> int:
     return 16 * len(packed.groups) + 4 * words + 4 * rows + side + 4 * n_out
 
 
+def pcm_decode_device_ms(wire: Any, layout: Any, n_out: int, exact: Any, lib: Any = None, copies: int = 4,
+                         launches: int = 16, replays: int = 10) -> float:
+    """pcm_decode's own device time, ms a launch: ``launches`` launches of
+    the kernel (``lib``, by default `pcmcodec.kernel()`) captured in one
+    CUDA graph (no Python, validation or allocation between them) and
+    replayed ``replays`` times under CUDA events. They cycle over ``copies``
+    copies of the wire and the output, which together exceed the card's 50
+    MB L2 at a full piece, so a launch finds its wire in device memory as a
+    freshly uploaded piece would. Every output must equal ``exact`` after
+    the replays (None: not checked)."""
+    import torch
+
+    from basic_pitch_torch.ops import pcmcodec
+
+    lib = lib or pcmcodec.kernel()
+    wires = [wire.clone() for _ in range(copies)]
+    outs = [torch.full((n_out,), float("nan"), device=wire.device) for _ in range(copies)]
+
+    def launch(i: int, stream: int) -> None:
+        err = lib.pcm_decode_launch(
+            wires[i].data_ptr(), layout.groups_off, layout.n_groups, layout.words_off, layout.idx_off,
+            layout.heads_off, layout.coeffs_off, layout.shifts_off, layout.nb, layout.order,
+            1 if layout.lpc else 0, n_out, outs[i].data_ptr(), stream,
+        )
+        if err:
+            raise RuntimeError(f"pcm_decode launch failed: cudaError_t {err}")
+
+    # a first launch outside the graph loads the kernel's module (lazily
+    # loaded modules cannot load while a stream is capturing)
+    for i in range(copies):
+        launch(i, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    for out in outs:
+        out.fill_(float("nan"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for j in range(launches):
+            launch(j % copies, stream)
+    graph.replay()
+    ms = cuda_ms(graph.replay, replays) / launches
+    if exact is not None and not all(torch.equal(out, exact) for out in outs):
+        raise AssertionError("pcm_decode in a CUDA graph: an output is not pcm / 32768")
+    return ms
+
+
+def lpc_chain_bound(steps: int = 1 << 20) -> Tuple[float, float, float]:
+    """The LPC decode's chain bound: the kernel's 248 dependent steps (a
+    multiply-add, the shift and the add) times one step's latency, measured
+    by `pcm_lpc_chain_probe` (one thread, ``steps`` steps, clock64) at the
+    SM clock measured over the same launch. Returns (ms, cycles a step, SM
+    clock in Hz)."""
+    import ctypes
+
+    import torch
+
+    from basic_pitch_torch.ops import pcmcodec
+
+    fn = pcmcodec.kernel().pcm_lpc_chain_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def probe() -> None:
+        if fn(steps, 1, 1, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("pcm_lpc_chain_probe did not launch")
+
+    probe()
+    ms = cuda_ms(probe, reps=3)
+    cycles = int(out[0])
+    clock_hz = cycles / (ms * 1e-3)
+    per_step = cycles / steps
+    return 248 * per_step / clock_hz * 1e3, per_step, clock_hz
+
+
 def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
     """pcm_decode against its plain version on the card, bit for bit, and
-    both against pcm / 32768; then the kernel's time against the plain
-    version, the pinned copy of the raw int16 bytes and its bound at
-    ``path_piece``, a full 128-window piece that the codec path decodes
-    (it packs smaller than raw), in its default mode and forced to LPC, and
-    at ``piece``, a full chunk of noisy audio that the path sends raw."""
+    both against pcm / 32768; then, at ``path_piece``, a full 128-window
+    piece that the codec path decodes (it packs smaller than raw), in its
+    default mode and forced to LPC, and at ``piece``, a full chunk of noisy
+    audio that the path sends raw: the kernel's own device time (a CUDA
+    graph, `pcm_decode_device_ms`), the wrapper's time, the plain version's,
+    the pinned copies of the wire and of the raw int16 bytes, the bytes
+    bound and, for LPC, the chain bound (`lpc_chain_bound`)."""
     import torch
 
     from basic_pitch_torch.ops import pcmcodec
@@ -983,8 +1072,7 @@ def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
     widths = set()
     max_err = 0.0
     cases = codec_cases(piece)
-    for name, pcm, kw in cases:
-        packed = pcmcodec.pack(pcm, **kw)
+    for name, pcm, packed in cases:
         widths |= {g[0] for g in packed.groups}
         wire, layout = pcmcodec.to_wire(packed)
         w_dev = torch.from_numpy(wire).to(dev)
@@ -995,18 +1083,21 @@ def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
         max_err = max(max_err, float((out - ref).abs().max()) if len(pcm) else 0.0)
         if not (torch.equal(out, ref) and torch.equal(out, exact)):
             bad = int(torch.nonzero(out != exact)[0]) if not torch.equal(out, exact) else -1
-            raise AssertionError(f"pcm_decode [{name} {kw}]: kernel != plain or != pcm/32768 (first bad sample {bad})")
-        if len(pcm) >= 44100 or name.startswith("ladder"):
-            print(f"pcm_decode == plain == pcm/32768 [{name} {kw}]: {packed.mode} order {packed.order}, "
-                  f"widths {sorted(g[0] for g in packed.groups)}, {packed.packed_bytes} of {pcm.nbytes} bytes")
+            raise AssertionError(f"pcm_decode [{name}]: kernel != plain or != pcm/32768 (first bad sample {bad})")
+        if len(pcm) >= 44100 or "ladder" in name or "unaligned" in name:
+            print(f"pcm_decode == plain == pcm/32768 [{name}]: {packed.mode} order {packed.order}, {packed.nb} blocks, "
+                  f"groups (k, rows) {[(g[0], g[2]) for g in packed.groups]}, {packed.packed_bytes} of {pcm.nbytes} bytes")
     if pcmcodec.launches != before + len(cases):
         raise AssertionError("decode_wire did not launch the kernel once per call")
     if widths != set(pcmcodec.KSET):
         raise AssertionError(f"the cases reached widths {sorted(widths)}, not every k of KSET")
-    print(f"pcm_decode: {len(cases)} cases bit-exact (fixed orders 1-3, lpc, default mode, every k of KSET, int16 extremes, lengths 1 .. {len(piece) * 2 + 256})")
+    print(f"pcm_decode: {len(cases)} cases bit-exact (fixed orders 1-3, lpc, default mode, every k of KSET, int16 "
+          f"extremes, lengths 1 .. {len(piece) * 2 + 256}, one block, groups of 1-3 rows, block counts off 32, "
+          f"group starts off 16 bytes)")
 
-    # times at full 128-window pieces: the one the codec path decodes, in
-    # its default mode and forced to lpc, and the noisy one it sends raw
+    chain_ms, step_cycles, clock_hz = lpc_chain_bound()
+    print(f"pcm_decode LPC chain: {step_cycles:.2f} cycles a step at a measured SM clock of {clock_hz / 1e6:.0f} MHz; "
+          f"248 steps = {chain_ms:.5f} ms")
     rows = {}
     for name, pcm, mode in (("path", path_piece, None), ("path_lpc", path_piece, "lpc"), ("noisy_raw", piece, None)):
         packed = pcmcodec.pack(pcm, mode=mode)
@@ -1015,7 +1106,9 @@ def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
         wire, layout = pcmcodec.to_wire(packed)
         w_dev = torch.from_numpy(wire).to(dev)
         n = len(pcm)
-        kernel_ms = cuda_ms(lambda: pcmcodec.decode_wire(w_dev, layout, n), reps=20)
+        exact = torch.from_numpy(pcm.astype(np.float32) / np.float32(32768.0)).to(dev)
+        device_ms = pcm_decode_device_ms(w_dev, layout, n, exact)
+        wrapper_ms = cuda_ms(lambda: pcmcodec.decode_wire(w_dev, layout, n), reps=20)
         plain_ms = cuda_ms(lambda: pcmcodec.decode_plain(w_dev, layout, n), reps=2)
         host_wire = torch.from_numpy(wire).pin_memory()
         wire_copy_ms = cuda_ms(lambda: host_wire.to(dev, non_blocking=True), reps=20)
@@ -1023,23 +1116,32 @@ def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
         raw_copy_ms = cuda_ms(lambda: raw_host.to(dev, non_blocking=True), reps=20)
         # least time: the bytes the kernel must touch at the card's memory
         # rate, against its integer work (~10 operations a sample fixed, ~25
-        # lpc) at the non-tensor rate, which is far below it
+        # lpc) at the non-tensor rate, which is far below it; LPC also has
+        # its chain of 248 dependent steps a block
         bytes_moved = pcm_decode_bytes(packed, n)
         ops = (25 if packed.mode == "lpc" else 10) * n
         bound_ms, bound_by = max((bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / FP32_OPS_PER_S * 1e3, "operations"))
+        lpc = packed.mode == "lpc"
         rows[name] = dict(
-            mode=packed.mode, order=packed.order, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes_moved=bytes_moved, packed_bytes=packed.packed_bytes, wire_bytes=layout.nbytes,
-            wire_copy_ms=wire_copy_ms, raw_copy_ms=raw_copy_ms,
+            mode=packed.mode, order=packed.order, ms=device_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, chain_bound_ms=chain_ms if lpc else None,
+            bound_share=bound_ms / device_ms, bytes_moved=bytes_moved, packed_bytes=packed.packed_bytes,
+            wire_bytes=layout.nbytes, wire_copy_ms=wire_copy_ms, raw_copy_ms=raw_copy_ms,
         )
+        chain = f", chain bound {chain_ms:.5f} ms ({chain_ms / device_ms:.1%} of it)" if lpc else ""
         print(
             f"pcm_decode [{name}: {n} samples, {packed.mode} order {packed.order}, {packed.packed_bytes} packed bytes "
-            f"against {pcm.nbytes} raw, {pcm.nbytes / packed.packed_bytes:.3f}x]: kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} bytes touched of a "
-            f"{layout.nbytes}-byte wire, 3.35 TB/s); pinned copy of the wire {wire_copy_ms:.4f} ms, of the raw "
-            f"int16 piece {raw_copy_ms:.4f} ms"
+            f"against {pcm.nbytes} raw, {pcm.nbytes / packed.packed_bytes:.3f}x]: kernel {device_ms:.5f} ms on the "
+            f"device (CUDA graph), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms by "
+            f"{bound_by} ({bytes_moved} bytes touched of a {layout.nbytes}-byte wire, 3.35 TB/s), "
+            f"{bound_ms / device_ms:.1%} of it{chain}; pinned copy of the wire {wire_copy_ms:.4f} ms, of the raw int16 "
+            f"piece {raw_copy_ms:.4f} ms"
         )
-    return dict(rows["path"], lpc=rows["path_lpc"], noisy_raw=rows["noisy_raw"], max_abs_err=max_err)
+    path, path_lpc = rows["path"], rows["path_lpc"]
+    print(f"pcm_decode targets: path at {path['bound_share']:.1%} of its bytes bound (target >= 50%: "
+          f"{'met' if path['bound_share'] >= 0.5 else 'missed'}); path_lpc {path_lpc['ms']:.5f} ms (target <= 0.030 ms: "
+          f"{'met' if path_lpc['ms'] <= 0.030 else 'missed'})")
+    return dict(path, lpc=path_lpc, noisy_raw=rows["noisy_raw"], max_abs_err=max_err)
 
 
 def event_churn(events: List[tuple], ref: List[tuple]) -> int:
@@ -1652,8 +1754,13 @@ def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
 
     # ---- a trace of one 60 s transcribe ----
     tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128)
+    tr.reprobe_after_calls = False
     audio, notes = tone_mix(SR, 60.0, seed=100)
     tr.transcribe(audio, SR)  # first-call set-up outside the trace
+    # a transport probe older than its TTL is re-measured here, on this
+    # thread (behind any re-probe another transcriber started), and no call
+    # starts one, so none lands inside the trace
+    tr.refresh_transport(wait=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before_bytes = profiling.device_memory_stats()["allocated_bytes.all.current"]
@@ -1669,6 +1776,9 @@ def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
     launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
     if launches["greedy_decode"] != 1:
         raise AssertionError(f"the traced transcribe launched greedy_decode {launches['greedy_decode']} times")
+    # float32 audio crosses raw; only a transport re-probe would decode
+    if launches["pcm_decode"] != 0:
+        raise AssertionError(f"the traced transcribe launched pcm_decode {launches['pcm_decode']} times")
     if recall(events, notes) < 0.8:
         raise AssertionError(f"the traced transcribe's recall is {recall(events, notes):.3f}")
     peak_bytes = profiling.device_memory_stats()["allocated_bytes.all.peak"]
@@ -2310,6 +2420,7 @@ def main() -> int:
         "launches_by_path": codec_by_path,
         "max_abs_err": codec_row["max_abs_err"],
         "ms": codec_row["ms"],
+        "wrapper_ms": codec_row["wrapper_ms"],
         "plain_ms": codec_row["plain_ms"],
         "bound_ms": codec_row["bound_ms"],
         "bound_by": codec_row["bound_by"],

@@ -161,6 +161,20 @@ def test_synced_batch_norm_statistics_equal_the_full_batch(tmp_path):
     np.testing.assert_allclose(np.concatenate([r["x_grad"] for r in ranks]), single["x_grad"], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["bn", "onset"])
+def test_shutdown_releases_the_process_group(tmp_path, case):
+    """After `distributed.shutdown` nothing holds the process group in
+    either process, so its threads (gloo's loops, process 0's TCPStore
+    server) have ended before the interpreter exits. A group kept alive past
+    `destroy_process_group` (as by `torch.distributed.nn.functional`, whose
+    defaults bind the live group when it is imported after the group
+    exists) had them torn down at exit, where a process could abort."""
+    for rank, r in enumerate(_two_process_case(case, tmp_path)):
+        assert "pt_gloo_runloop" in r["threads_in_group"], rank  # the check sees the threads it looks for
+        assert bool(r["group_released"]), rank
+        assert list(r["threads_after"]) == [], (rank, r["threads_after"])
+
+
 def test_pooled_onset_loss_over_two_processes_equals_one(tmp_path):
     ranks = _two_process_case("onset", tmp_path)
     single = worker.onset_case()

@@ -166,3 +166,23 @@ def test_pcm_decode_matches_plain_on_card(cuda_device, kw):
         assert torch.equal(out, ref), name
         assert torch.equal(out, exact), name
         assert torch.equal(pcmcodec.decode_to_device(packed, len(pcm), cuda_device), exact), name
+
+
+@pytest.mark.cuda
+def test_pcm_decode_tiling_cases_on_card(cuda_device):
+    """The kernel's tiling (32 stream rows a CTA, staged as one span): a
+    piece of one block, groups of one to three rows so that group edges fall
+    inside a CTA, block counts off a multiple of 32, group starts off a
+    16-byte boundary; bit for bit against the plain decode and pcm / 32768."""
+    from basic_pitch_torch.ops import pcmcodec
+    from torch_codec_cases import tiling_cases
+
+    for name, pcm, packed in tiling_cases():
+        wire, layout = pcmcodec.to_wire(packed)
+        w = torch.from_numpy(wire).to(cuda_device)
+        out = pcmcodec.decode_wire(w, layout, len(pcm))
+        ref = pcmcodec.decode_plain(w, layout, len(pcm))
+        torch.cuda.synchronize()
+        exact = torch.from_numpy(pcm.astype(np.float32) / np.float32(32768.0)).to(cuda_device)
+        assert torch.equal(out, ref), name
+        assert torch.equal(out, exact), name

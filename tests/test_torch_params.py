@@ -547,7 +547,7 @@ def test_packer_copy_matches():
     assert '["g++", ' + ", ".join(f'"{f}"' for f in t_build.HOST_FLAGS) + ', "-o"' in j_build
 
 
-CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py", "chip_serve_times.py")
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_decode_times.py", "chip_serve_times.py", "chip_codec_times.py")
 TRAINING_SLICE = ("train/losses.py", "train/loop.py", "train/visualize.py", "data/proto.py", "data/tfrecord.py",
                   "data/serialization.py", "data/loader.py", "cli/train.py")
 

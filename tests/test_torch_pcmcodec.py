@@ -1,8 +1,10 @@
 """PyTorch port, the lossless PCM16 codec (`ops/pcmcodec.py`): the host
 packer byte for byte against the JAX package's, the plain decode bit for bit
 against the JAX package's decode and against pcm / 32768, and the codec
-transcriber against the raw one, on the CPU. The CUDA kernel is held against
-the plain decode in `tests/test_torch_kernel_cuda.py` and `chip_smoke.py`.
+transcriber against the raw one, on the CPU. The CUDA kernel's fixed-order
+arithmetic is emulated here in its own order (`_kernel_order_decode`); the
+kernel itself is held against the plain decode in
+`tests/test_torch_kernel_cuda.py` and `chip_smoke.py`.
 
 The signals are those of tests/test_pcmcodec.py.
 """
@@ -15,6 +17,7 @@ from basic_pitch_torch import _build
 from basic_pitch_torch import pipeline as t_pipeline
 from basic_pitch_torch.ops import pcmcodec as t_codec
 from basic_pitch_tpu.ops import pcmcodec as j_codec
+import torch_codec_cases as cases
 from torch_port_helpers import SR, one_torch_thread, to_pcm16, tone_mix  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -254,3 +257,109 @@ def test_forced_codec_raises_when_the_packer_cannot_build(monkeypatch):
     tr = t_pipeline.StreamingTranscriber(windows_per_chunk=1, device="cpu", pcm_transport="auto")
     assert not tr._codec_enabled(np.dtype(np.int16))
     monkeypatch.setattr(t_codec, "_packer_error", None)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's fixed-order arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------
+
+
+def _kernel_order_decode(packed, n_out):
+    """`csrc/pcm_decode.cu`'s fixed-order decode in its own order, in int32:
+    lane l of a block's warp holds samples 8l .. 8l+7, reads its residuals
+    from the row's words through a 64-bit bit reservoir starting at bit
+    max(8l - order, 0) * k (lane 0 holds the heads' zero-history differences
+    first), then `order` passes of a two-level prefix sum: 8 in registers,
+    the lane totals by a Hillis-Steele warp scan, the exclusive carry added
+    back."""
+    order, nb = packed.order, packed.nb
+    words = np.concatenate([packed.words, np.zeros(4, np.uint32)]).astype(np.uint64)
+    lane = np.arange(32)
+    s = np.zeros((nb, 32, 8), np.int64)
+    for k, word_off, n_rows, gidx in packed.groups:
+        bit = np.maximum(8 * lane - order, 0) * k
+        p = word_off + np.arange(n_rows)[:, None] * t_codec.words_per_block(k, order) + (bit >> 5)[None, :]
+        sh = np.broadcast_to((bit & 31).astype(np.uint64), p.shape)
+        buf = ((words[p + 1] << np.uint64(32)) | words[p]) >> sh
+        have = 64 - sh.astype(np.int64)
+        p = p + 2
+        vals = np.zeros((n_rows, 32, 8), np.int64)
+        for i in range(8):
+            take = np.broadcast_to((lane > 0) | (i >= order), p.shape)  # lane 0 holds the heads first
+            raw = (buf & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            buf = np.where(take, buf >> np.uint64(k), buf)
+            have = np.where(take, have - k, have)
+            refill = take & (have < 32)
+            buf = np.where(refill, buf | (words[p] << np.maximum(have, 0).astype(np.uint64)), buf)
+            p = np.where(refill, p + 1, p)
+            have = np.where(refill, have + 32, have)
+            v = raw & ((1 << k) - 1)
+            vals[:, :, i] = v - ((v & (1 << (k - 1))) << 1)
+        s[gidx[:n_rows]] = vals
+    h = packed.heads.astype(np.int64)
+    # Delta^order of the block with zero history: `order` cumsums of it
+    # give the heads back
+    binom = {1: [1], 2: [1, -2], 3: [1, -3, 3]}[order]
+    for i in range(order):
+        s[:, 0, i] = sum(binom[j] * h[:, i - j] for j in range(i + 1))
+    v = torch.from_numpy(s.astype(np.int32))
+    for _ in range(order):
+        v = torch.cumsum(v, dim=2, dtype=torch.int32)
+        total = v[:, :, 7].clone()
+        for d in (1, 2, 4, 8, 16):
+            up = torch.zeros_like(total)
+            up[:, d:] = total[:, :-d]
+            total = total + up
+        v = v + (total - v[:, :, 7])[:, :, None]
+    return (v.reshape(-1)[:n_out].to(torch.float32) * (1.0 / 32768.0)).numpy()
+
+
+def _scan_case(name, order):
+    """(pcm, packed) of a named case at a fixed order."""
+    if name == "every k of KSET":
+        pcm, widths = cases.ladder(order, [2] * len(t_codec.KSET), seed=order)
+        return pcm, cases.pack_with_widths(pcm, widths, order)
+    if name == "extremes":
+        pcm = _signals()["extremes"]
+    elif name == "full-scale alternation":
+        pcm = np.tile(np.array([-32768, 32767], np.int16), 3000)
+    else:
+        n = int(name.split()[1])
+        pcm = (np.sin(np.arange(n) * 0.031) * 12000 + np.random.RandomState(n).randn(n) * 300).astype(np.int16)
+    return pcm, t_codec.pack(pcm, order=order)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("name", ["every k of KSET", "extremes", "full-scale alternation", "length 1",
+                                  "length 255", "length 256", "length 257", "length 44100"])
+def test_kernel_scan_order_is_bit_exact(name, order):
+    """The kernel's decode order (bit reservoir, 8 residuals a lane, warp
+    carry, `order` passes) equals `decode_plain`, the JAX package's decode
+    and pcm / 32768 bit for bit."""
+    pcm, packed = _scan_case(name, order)
+    assert packed.order == order
+    if name == "every k of KSET":
+        assert sorted(g[0] for g in packed.groups) == sorted(t_codec.KSET)
+    out = _kernel_order_decode(packed, len(pcm))
+    wire, layout = t_codec.to_wire(packed)
+    np.testing.assert_array_equal(out, t_codec.decode_plain(torch.from_numpy(wire), layout, len(pcm)).numpy())
+    np.testing.assert_array_equal(out, pcm.astype(np.float32) / np.float32(32768.0))
+    j_packed = j_codec.PackedPCM(packed.words, packed.groups, packed.heads, packed.n_samples, packed.nb, packed.order)
+    np.testing.assert_array_equal(out, np.asarray(j_codec.decode_to_device(j_packed, len(pcm))))
+
+
+def test_tiling_cases_decode_exactly():
+    """The card's tiling cases (`tests/torch_codec_cases.py`: one block,
+    groups of one to three rows, block counts off 32, group starts off 16
+    bytes) are valid wires: the plain decode and the JAX package's give
+    pcm / 32768 bit for bit, and the fixed-order ones decode so in the
+    kernel's order too."""
+    for name, pcm, packed in cases.tiling_cases():
+        wire, layout = t_codec.to_wire(packed)
+        out = t_codec.decode_plain(torch.from_numpy(wire), layout, len(pcm)).numpy()
+        np.testing.assert_array_equal(out, pcm.astype(np.float32) / np.float32(32768.0), err_msg=name)
+        j_packed = j_codec.PackedPCM(packed.words, packed.groups, packed.heads, packed.n_samples, packed.nb,
+                                     packed.order, packed.coeffs, packed.shifts)
+        np.testing.assert_array_equal(out, np.asarray(j_codec.decode_to_device(j_packed, len(pcm))), err_msg=name)
+        if packed.mode == "fixed":
+            np.testing.assert_array_equal(_kernel_order_decode(packed, len(pcm)), out, err_msg=name)

@@ -6,13 +6,18 @@
 Every process makes the same seeded global batch, takes its slice
 (`distributed.local_slice`), runs the case with `distributed.all_sum` and
 writes what it computed to OUT.npz for the test to compare with one
-process on the whole batch (`global_inputs` gives that batch).
+process on the whole batch (`global_inputs` gives that batch), and what of
+the process group outlived `distributed.shutdown`.
 """
 
+import os
+import pathlib
 import sys
+import weakref
 
 import numpy as np
 import torch
+import torch.distributed
 
 from basic_pitch_torch.models import nmp
 from basic_pitch_torch.parallel import distributed as dist
@@ -87,14 +92,31 @@ def onset_case(all_sum=None) -> dict:
     return out
 
 
+def c10d_threads() -> list:
+    """This process's threads that belong to a process group: gloo's loops
+    and the TCPStore server (Linux thread names)."""
+    names = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            names.append(pathlib.Path(f"/proc/self/task/{tid}/comm").read_text().strip())
+        except FileNotFoundError:  # the thread ended meanwhile
+            pass
+    return sorted(n for n in names if "gloo" in n or "tcpstore" in n)
+
+
 def main() -> None:
     case, rank, world, port, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
     torch.set_num_threads(1)
     dist.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    group = weakref.ref(torch.distributed.group.WORLD)
     try:
         result = (bn_case if case == "bn" else onset_case)(dist.all_sum)
+        threads_in_group = c10d_threads()
     finally:
         dist.shutdown()
+    # what outlives the group: nothing, when shutdown released it
+    result.update(group_released=np.array(group() is None), threads_in_group=np.array(threads_in_group),
+                  threads_after=np.array(c10d_threads(), dtype=str))
     np.savez(out, **result)
 
 
