@@ -26,6 +26,7 @@ import torch
 
 from basic_pitch_torch import constants
 from basic_pitch_torch.decode import notes as host_decode
+from basic_pitch_torch.utils import profiling
 
 F = constants.N_FREQ_BINS_NOTES  # 88
 N_BEND_TOLERANCE = 25
@@ -412,7 +413,8 @@ def notes_to_events_packed(
     if long_idx:
         cols = np.unique([pitches[i] - host_decode.MIDI_PITCH_OFFSET for i in long_idx])
         index = torch.from_numpy(cols).long().to(bends_all_device.device)
-        fetched = bends_all_device[:, index].cpu().numpy().astype(np.int64)
+        with profiling.span("bp.transcriber.fetch"):
+            fetched = bends_all_device[:, index].cpu().numpy().astype(np.int64)
         long_cols = {int(c): fetched[:, j] for j, c in enumerate(cols)}
     events = []
     for i, (s, e, p, a) in enumerate(zip(starts, ends, pitches, amps)):

@@ -36,6 +36,14 @@ products flip a few percent of decoded notes on dense material. The
 ``precision`` / ``head_precision`` settings scope TF32 or bf16 autocast to
 the model stage they name (`nmp.precision_scope`) and restore the flags
 after it.
+
+While a profiler runs (`utils/profiling.py`), a call records
+``bp.transcriber.batch``; per recording ``bp.transcriber.forward`` (with
+``bp.transcriber.upload`` per piece and ``bp.transcriber.model`` per model
+call), ``bp.decode.dispatch``, ``bp.transcriber.fetch`` around each copy to
+the host and ``bp.transcriber.assemble``, under the recording's request id;
+and the counters ``transcriber.windows_needed`` / ``windows_run``, the
+windows the audio covers and those the model ran (whole W-window chunks).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from basic_pitch_torch.ops import resample as resample_ops
 from basic_pitch_torch.ops import transport
 from basic_pitch_torch.parallel import mesh as mesh_lib
 from basic_pitch_torch.utils import audio as audio_io
+from basic_pitch_torch.utils import profiling
 
 HOP = constants.WINDOW_HOP_SAMPLES  # 36164
 OVERLAP = constants.OVERLAP_LENGTH_SAMPLES  # 7680
@@ -78,6 +87,13 @@ def _pack_wire(piece: np.ndarray) -> "Tuple[pcmcodec.PackedPCM, Tuple[np.ndarray
     """Pack one int16 piece and lay out its wire (on a packer thread)."""
     packed = pcmcodec.pack(piece)
     return packed, pcmcodec.to_wire(packed)
+
+
+def _needed_windows(n_samples: int, is_44k: bool) -> int:
+    """Model windows a recording of ``n_samples`` covers, before its last
+    chunk is padded to W."""
+    length = resample_ops.decimate2_output_length(n_samples) if is_44k else n_samples
+    return max(1, -(-(length + OVERLAP // 2) // HOP))
 
 
 def _padded_slice(x: np.ndarray, lo: int, hi: int) -> np.ndarray:
@@ -275,9 +291,7 @@ class StreamingTranscriber:
             original_length = resample_ops.decimate2_output_length(len(audio))
         else:
             raise ValueError(f"expected 22050 or 44100 Hz, got {sample_rate}")
-        pad_front = OVERLAP // 2
-        n_windows = max(1, -(-(original_length + pad_front) // HOP))
-        n_chunks = -(-n_windows // self.w)
+        n_chunks = -(-_needed_windows(len(audio), is_44k) // self.w)
         n_frames = int(original_length / HOP * FRAMES_PER_WINDOW)
         return audio, is_44k, n_chunks, n_frames
 
@@ -376,54 +390,60 @@ class StreamingTranscriber:
         in row order on devices[0], with the bend matrix, which is
         frame-local, so per piece its (frames, 88, 51) gather stays bounded
         whatever the recording's length."""
-        frames = self.w_local * FRAMES_PER_WINDOW
-        outs = []
-        for r, (dev, model) in enumerate(zip(self.devices, self._row_models)):
-            windows = []
-            with nmp.precision_scope(self.precision, dev.type):
-                for rows in pieces:
-                    x = rows[r]
-                    if is_44k:
-                        x = resample_ops.decimate2(x, halo=True, n_out=self.row_span, matrix=self._dec2[dev])
-                    windows.append(unfold_windows(x.float(), self.w_local))
-            batch = windows[0] if len(windows) == 1 else torch.cat(windows)
-            out = model(batch, self.precision, self.head_precision, self.conv_impl)
-            outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(len(pieces), frames, v.shape[2]) for k, v in out.items()})
-        chunks = []
-        for i in range(len(pieces)):
-            if len(outs) == 1:
-                chunk = {k: v[i] for k, v in outs[0].items()}
-            else:
-                chunk = {k: torch.cat([o[k][i].to(self.device) for o in outs]) for k in outs[0]}
-            chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
-            chunks.append(chunk)
-        return chunks
+        with profiling.span("bp.transcriber.model"):
+            frames = self.w_local * FRAMES_PER_WINDOW
+            outs = []
+            for r, (dev, model) in enumerate(zip(self.devices, self._row_models)):
+                windows = []
+                with nmp.precision_scope(self.precision, dev.type):
+                    for rows in pieces:
+                        x = rows[r]
+                        if is_44k:
+                            x = resample_ops.decimate2(x, halo=True, n_out=self.row_span, matrix=self._dec2[dev])
+                        windows.append(unfold_windows(x.float(), self.w_local))
+                batch = windows[0] if len(windows) == 1 else torch.cat(windows)
+                out = model(batch, self.precision, self.head_precision, self.conv_impl)
+                outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(len(pieces), frames, v.shape[2]) for k, v in out.items()})
+            chunks = []
+            for i in range(len(pieces)):
+                if len(outs) == 1:
+                    chunk = {k: v[i] for k, v in outs[0].items()}
+                else:
+                    chunk = {k: torch.cat([o[k][i].to(self.device) for o in outs]) for k in outs[0]}
+                chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
+                chunks.append(chunk)
+            return chunks
 
     @torch.inference_mode()
-    def _forward(self, audio: np.ndarray, sample_rate: int):
+    def _forward(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
         """Upload every piece's rows, each to its own device, and run the
         model on groups of ``compute_group`` pieces. Returns (dict on
         devices[0] of (n_chunks*W*142, F) "note", "onset", "contour" and
-        int8 "bends", n_frames, n_chunks)."""
-        audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
-        pieces = list(self._pieces(audio, is_44k, n_chunks))
-        codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
-        # pack on worker threads: piece c+1 packs while piece c uploads
-        pool = self._packer_threads() if any(codec) else None
-        packed = [[pool.submit(_pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
-        chunks: list = []
-        pending: list = []
-        for rows, futures in zip(pieces, packed):
-            pending.append([
-                self._upload_piece(row, None if future is None else future.result(), dev, key)
-                for row, future, dev, key in zip(rows, futures, self.devices, self._row_keys)
-            ])
-            if len(pending) == self.compute_group:
+        int8 "bends", n_frames, n_chunks). ``request`` is the recording's
+        request id in the spans (`utils/profiling.py`)."""
+        with profiling.span("bp.transcriber.forward", request=request):
+            audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
+            profiling.count("transcriber.windows_needed", _needed_windows(len(audio), is_44k))
+            profiling.count("transcriber.windows_run", n_chunks * self.w)
+            pieces = list(self._pieces(audio, is_44k, n_chunks))
+            codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
+            # pack on worker threads: piece c+1 packs while piece c uploads
+            pool = self._packer_threads() if any(codec) else None
+            packed = [[pool.submit(_pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
+            chunks: list = []
+            pending: list = []
+            for rows, futures in zip(pieces, packed):
+                with profiling.span("bp.transcriber.upload"):
+                    pending.append([
+                        self._upload_piece(row, None if future is None else future.result(), dev, key)
+                        for row, future, dev, key in zip(rows, futures, self.devices, self._row_keys)
+                    ])
+                if len(pending) == self.compute_group:
+                    chunks += self._model_chunks(pending, is_44k)
+                    pending = []
+            if pending:
                 chunks += self._model_chunks(pending, is_44k)
-                pending = []
-        if pending:
-            chunks += self._model_chunks(pending, is_44k)
-        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, n_frames, n_chunks
+            return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, n_frames, n_chunks
 
     def decode_inputs(
         self, out: Dict[str, torch.Tensor], n_frames: int, n_chunks: int
@@ -450,8 +470,9 @@ class StreamingTranscriber:
     ) -> dict:
         """Enqueue uploads, chunk programs and the decode for one recording;
         nothing waits for the device."""
-        out, n_frames, n_chunks = self._forward(audio, sample_rate)
-        return self._decode_dispatch(out, n_frames, n_chunks, options, max_notes, keep_outputs)
+        request = profiling.new_request()
+        out, n_frames, n_chunks = self._forward(audio, sample_rate, request)
+        return self._decode_dispatch(out, n_frames, n_chunks, options, max_notes, keep_outputs, request)
 
     @torch.inference_mode()
     def _decode_dispatch(
@@ -462,44 +483,49 @@ class StreamingTranscriber:
         options: DecodeOptions,
         max_notes: int,
         keep_outputs: bool = False,
+        request: Optional[int] = None,
     ) -> dict:
         """Enqueue the decode of one recording's chunk outputs (`_forward`'s
-        dict) and return its ticket for `_collect_many`."""
-        freq_mask = None
-        if options.min_freq is not None or options.max_freq is not None:
-            mask = np.ones(constants.N_FREQ_BINS_NOTES, np.float32)
-            if options.min_freq is not None:
-                mask[: int(np.round(host_decode.hz_to_midi(options.min_freq) - host_decode.MIDI_PITCH_OFFSET))] = 0
-            if options.max_freq is not None:
-                mask[int(np.round(host_decode.hz_to_midi(options.max_freq) - host_decode.MIDI_PITCH_OFFSET)) :] = 0
-            freq_mask = torch.from_numpy(mask).to(self.device)
-        note, onset, bends_all, notes_floor = self.decode_inputs(out, n_frames, n_chunks)
-        max_notes = max(max_notes, notes_floor)
-        decoded = greedy_kernel.decode_greedy(
-            note,
-            onset,
-            options.onset_threshold,
-            options.frame_threshold,
-            options.min_note_length,
-            freq_mask=freq_mask,
-            infer_onsets=options.infer_onsets,
-            melodia_trick=options.melodia_trick,
-            max_notes=max_notes,
-            # every above-threshold scrap costs a melodia iteration, so the
-            # safety cap grows with the frame count
-            max_melodia_iters=2 * max_notes + 2 * note.shape[0],
-            valid_frames=n_frames,
-        )
-        bends_inline = device_decode.gather_note_bends(bends_all, decoded) if options.include_pitch_bends else None
-        return {
-            "n_frames": n_frames,
-            "decoded_dev": decoded,
-            "bends_inline_dev": bends_inline,
-            "bends_all_dev": bends_all,
-            "outputs_dev": {k: out[k] for k in ("note", "onset", "contour")},
-            "keep_outputs": keep_outputs,
-            "options": options,
-        }
+        dict) and return its ticket for `_collect_many`; ``request`` is the
+        recording's request id in the spans, which the ticket carries on
+        to the fetch and the assembly."""
+        with profiling.span("bp.decode.dispatch", request=request) as span:
+            freq_mask = None
+            if options.min_freq is not None or options.max_freq is not None:
+                mask = np.ones(constants.N_FREQ_BINS_NOTES, np.float32)
+                if options.min_freq is not None:
+                    mask[: int(np.round(host_decode.hz_to_midi(options.min_freq) - host_decode.MIDI_PITCH_OFFSET))] = 0
+                if options.max_freq is not None:
+                    mask[int(np.round(host_decode.hz_to_midi(options.max_freq) - host_decode.MIDI_PITCH_OFFSET)) :] = 0
+                freq_mask = torch.from_numpy(mask).to(self.device)
+            note, onset, bends_all, notes_floor = self.decode_inputs(out, n_frames, n_chunks)
+            max_notes = max(max_notes, notes_floor)
+            decoded = greedy_kernel.decode_greedy(
+                note,
+                onset,
+                options.onset_threshold,
+                options.frame_threshold,
+                options.min_note_length,
+                freq_mask=freq_mask,
+                infer_onsets=options.infer_onsets,
+                melodia_trick=options.melodia_trick,
+                max_notes=max_notes,
+                # every above-threshold scrap costs a melodia iteration, so the
+                # safety cap grows with the frame count
+                max_melodia_iters=2 * max_notes + 2 * note.shape[0],
+                valid_frames=n_frames,
+            )
+            bends_inline = device_decode.gather_note_bends(bends_all, decoded) if options.include_pitch_bends else None
+            return {
+                "n_frames": n_frames,
+                "decoded_dev": decoded,
+                "bends_inline_dev": bends_inline,
+                "bends_all_dev": bends_all,
+                "outputs_dev": {k: out[k] for k in ("note", "onset", "contour")},
+                "keep_outputs": keep_outputs,
+                "options": options,
+                "request": None if span is None else span.request,
+            }
 
     # minimum shrunk note capacity fetched to the host
     _SHRINK_MIN_NOTES = 1024
@@ -518,9 +544,10 @@ class StreamingTranscriber:
         count-bucketed buffers, and assemble events."""
         if not tickets:
             return []
-        metas = torch.stack(
-            [torch.stack([t["decoded_dev"].n_notes, t["decoded_dev"].overflow.to(torch.int32)]) for t in tickets]
-        ).cpu().tolist()
+        with profiling.span("bp.transcriber.fetch"):
+            metas = torch.stack(
+                [torch.stack([t["decoded_dev"].n_notes, t["decoded_dev"].overflow.to(torch.int32)]) for t in tickets]
+            ).cpu().tolist()
         results = []
         for ticket, (n_notes, overflow) in zip(tickets, metas):
             decoded_dev = ticket["decoded_dev"]
@@ -528,13 +555,14 @@ class StreamingTranscriber:
                 results.append(self._assemble(ticket, None, None))
                 continue
             out_cap = self._shrink_bucket(n_notes, decoded_dev.starts.shape[0])
-            decoded = device_decode.DecodedNotes(
-                *(field[:out_cap].cpu() for field in decoded_dev[:4]),
-                n_notes=torch.tensor(n_notes, dtype=torch.int32),
-                overflow=torch.tensor(False),
-            )
-            bends = ticket["bends_inline_dev"]
-            bends = bends[:out_cap].cpu().numpy() if bends is not None else None
+            with profiling.span("bp.transcriber.fetch", request=ticket["request"]):
+                decoded = device_decode.DecodedNotes(
+                    *(field[:out_cap].cpu() for field in decoded_dev[:4]),
+                    n_notes=torch.tensor(n_notes, dtype=torch.int32),
+                    overflow=torch.tensor(False),
+                )
+                bends = ticket["bends_inline_dev"]
+                bends = bends[:out_cap].cpu().numpy() if bends is not None else None
             results.append(self._assemble(ticket, decoded, bends))
         if self.reprobe_after_calls:
             self.refresh_transport()
@@ -543,41 +571,43 @@ class StreamingTranscriber:
     def _assemble(self, ticket: dict, decoded: Optional[device_decode.DecodedNotes], bends_inline: Optional[np.ndarray]):
         """Host-side event assembly; `decoded` None means the device decode
         overflowed and the host decoder runs on the posteriorgrams."""
-        opts = ticket["options"]
-        n_frames = ticket["n_frames"]
-        model_output = None
-        if decoded is None or ticket["keep_outputs"]:
-            model_output = {k: v[:n_frames].cpu().numpy() for k, v in ticket["outputs_dev"].items()}
+        with profiling.span("bp.transcriber.assemble", request=ticket["request"]):
+            opts = ticket["options"]
+            n_frames = ticket["n_frames"]
+            model_output = None
+            if decoded is None or ticket["keep_outputs"]:
+                with profiling.span("bp.transcriber.fetch"):
+                    model_output = {k: v[:n_frames].cpu().numpy() for k, v in ticket["outputs_dev"].items()}
 
-        if decoded is None:  # pathological density: host fallback
-            self.host_fallbacks += 1
-            config = host_decode.DecodeConfig(
-                onset_threshold=opts.onset_threshold,
-                frame_threshold=opts.frame_threshold,
-                min_note_length=opts.min_note_length,
-                infer_onsets=opts.infer_onsets,
-                min_freq=opts.min_freq,
-                max_freq=opts.max_freq,
-                melodia_trick=opts.melodia_trick,
-            )
-            frame_notes = host_decode.decode_note_events(model_output["note"], model_output["onset"], config)
-            if opts.include_pitch_bends:
-                events_f = host_decode.extract_pitch_bends(model_output["contour"], frame_notes)
+            if decoded is None:  # pathological density: host fallback
+                self.host_fallbacks += 1
+                config = host_decode.DecodeConfig(
+                    onset_threshold=opts.onset_threshold,
+                    frame_threshold=opts.frame_threshold,
+                    min_note_length=opts.min_note_length,
+                    infer_onsets=opts.infer_onsets,
+                    min_freq=opts.min_freq,
+                    max_freq=opts.max_freq,
+                    melodia_trick=opts.melodia_trick,
+                )
+                frame_notes = host_decode.decode_note_events(model_output["note"], model_output["onset"], config)
+                if opts.include_pitch_bends:
+                    events_f = host_decode.extract_pitch_bends(model_output["contour"], frame_notes)
+                else:
+                    events_f = [(s, e, p, a, None) for s, e, p, a in frame_notes]
+            elif opts.include_pitch_bends:
+                events_f = device_decode.notes_to_events_packed(decoded, bends_inline, ticket["bends_all_dev"])
             else:
-                events_f = [(s, e, p, a, None) for s, e, p, a in frame_notes]
-        elif opts.include_pitch_bends:
-            events_f = device_decode.notes_to_events_packed(decoded, bends_inline, ticket["bends_all_dev"])
-        else:
-            events_f = device_decode.notes_to_events(decoded)
+                events_f = device_decode.notes_to_events(decoded)
 
-        times = host_decode.model_frames_to_time(n_frames)
-        events = [
-            (float(times[s]), float(times[min(e, n_frames - 1)]), p, a, b)
-            for s, e, p, a, b in events_f
-        ]
-        if ticket["keep_outputs"]:
-            return events, model_output
-        return events
+            times = host_decode.model_frames_to_time(n_frames)
+            events = [
+                (float(times[s]), float(times[min(e, n_frames - 1)]), p, a, b)
+                for s, e, p, a, b in events_f
+            ]
+            if ticket["keep_outputs"]:
+                return events, model_output
+            return events
 
     # ------------------------------------------------------------------
 
@@ -608,8 +638,9 @@ class StreamingTranscriber:
             onset_threshold, frame_threshold, min_note_length, min_freq, max_freq,
             infer_onsets, melodia_trick, include_pitch_bends,
         )
-        ticket = self._dispatch(audio, sample_rate, options, max_notes)
-        return self._collect_many([ticket])[0]
+        with profiling.span("bp.transcriber.batch"):
+            ticket = self._dispatch(audio, sample_rate, options, max_notes)
+            return self._collect_many([ticket])[0]
 
     def transcribe_batch(
         self,
@@ -633,8 +664,9 @@ class StreamingTranscriber:
             onset_threshold, frame_threshold, min_note_length, min_freq, max_freq,
             infer_onsets, melodia_trick, include_pitch_bends,
         )
-        tickets = [self._dispatch(audio, sr, options, max_notes, return_model_outputs) for audio, sr in recordings]
-        return self._collect_many(tickets)
+        with profiling.span("bp.transcriber.batch"):
+            tickets = [self._dispatch(audio, sr, options, max_notes, return_model_outputs) for audio, sr in recordings]
+            return self._collect_many(tickets)
 
     def transcribe_file(self, audio_path: "str | pathlib.Path") -> Dict[str, np.ndarray]:
         """Posteriorgrams of a WAV file; 44.1 and 22.05 kHz go to the device

@@ -20,14 +20,21 @@ throughput comes from batching their requests into one `transcribe_batch`.
   stream error), and ``close()`` drains queued requests before stopping.
   A failure in the transcriber (a kernel that does not build or launch
   included) reaches the caller as HTTP 500 and is logged; nothing decodes
-  with another decoder in its place.
+  with another decoder in its place. While a profiler runs, each HTTP
+  request records spans (`utils/profiling.py`): ``bp.serve.request`` on its
+  handler thread, ``bp.serve.queue_wait`` under it, and
+  ``bp.serve.dispatch`` for its group on the dispatch thread, all under
+  the request's id.
 - `TranscriptionHandler` / `make_server` — a stdlib ThreadingHTTPServer
   speaking a small JSON/MIDI API:
 
     GET  /healthz          -> {"status": "ok", decode_backend ("kernel" on
          the card, "plain" on the CPU), pcm_transport (the mode asked
          for: "auto", "codec" or "raw"), ...}
-    GET  /metrics          -> request/audio-second/latency counters
+    GET  /metrics          -> request/audio-second/latency counters, and
+         ``queue_wait_seconds``: the summed wait of the answered requests
+         (``requests`` counts them) from enqueue to the dispatch thread
+         taking them
     POST /v1/transcribe    -> WAV body; query params mirror the CLI flags
          (onset_threshold, frame_threshold, minimum_note_length,
          minimum_frequency, maximum_frequency, melodia, infer_onsets,
@@ -63,6 +70,7 @@ from basic_pitch_torch import streaming
 from basic_pitch_torch.decode import export
 from basic_pitch_torch.utils import audio as audio_io
 from basic_pitch_torch.utils import hostmem
+from basic_pitch_torch.utils import profiling
 
 MAX_BODY_BYTES = 256 << 20  # one hour of 44.1 kHz stereo PCM16 is ~600 MB/2ch
 
@@ -136,6 +144,7 @@ _PARAM_DEFAULTS = {
 class _Pending:
     __slots__ = (
         "samples", "sr", "params", "event", "result", "error", "kind", "abandoned",
+        "enqueued", "queue_wait_s", "parent",
     )
 
     def __init__(self, samples, sr, params, kind="request"):
@@ -147,6 +156,9 @@ class _Pending:
         self.error: Optional[Exception] = None
         self.kind = kind  # "request" | "stream_flush" (metrics accounting)
         self.abandoned = False  # caller timed out; skip at dispatch
+        self.enqueued = time.monotonic()
+        self.queue_wait_s = 0.0  # enqueue to the dispatch thread taking it
+        self.parent = profiling.current()  # the caller's span, while tracing
 
 
 class TranscriptionService:
@@ -193,6 +205,7 @@ class TranscriptionService:
             "stream_flushes": 0,
             "shed": 0,
             "timeouts": 0,
+            "queue_wait_seconds": 0.0,
         }
         # the transport re-probe (`StreamingTranscriber.refresh_transport`)
         # runs here only while the queue is idle, never right after a batch
@@ -267,6 +280,10 @@ class TranscriptionService:
                 self._queue.put(None)
                 break
             group.append(item)
+        taken = time.monotonic()
+        for item in group:
+            item.queue_wait_s = taken - item.enqueued
+            profiling.record("bp.serve.queue_wait", item.queue_wait_s, item.parent)
         return group
 
     def _run(self) -> None:
@@ -302,10 +319,12 @@ class TranscriptionService:
         items = live
         t0 = time.monotonic()
         params = items[0].params
+        requests = [it.parent.request for it in items if it.parent is not None]
         try:
-            results = self.transcriber.transcribe_batch(
-                [(it.samples, it.sr) for it in items], **params
-            )
+            with profiling.span("bp.serve.dispatch", request=requests[0] if requests else None, requests=requests):
+                results = self.transcriber.transcribe_batch(
+                    [(it.samples, it.sr) for it in items], **params
+                )
             for item, events in zip(items, results):
                 item.result = events
         except Exception as err:  # noqa: BLE001 — delivered to the caller
@@ -325,6 +344,7 @@ class TranscriptionService:
                             self.metrics["errors"] += 1
                         continue
                     self.metrics["requests"] += 1
+                    self.metrics["queue_wait_seconds"] += item.queue_wait_s
                     if item.error is not None:
                         self.metrics["errors"] += 1
                     else:
@@ -611,55 +631,56 @@ class TranscriptionHandler(BaseHTTPRequestHandler):
         if url.path not in ("/v1/transcribe", "/transcribe"):
             self._send_json(404, {"error": f"no route {url.path!r}"})
             return
-        try:
-            max_body = getattr(self.server, "max_body_bytes", MAX_BODY_BYTES)
-            length = int(self.headers.get("Content-Length", "0"))
-            if length > max_body:
-                # body is left unread: drop the connection after replying
-                self.close_connection = True
-                self._send_json(
-                    413, {"error": f"body exceeds {max_body} bytes"}
-                )
-                return
-            raw = self.rfile.read(length)
-            query = parse_qs(url.query)
-            params = _parse_params(query)
-            samples, sr = decode_wav_request(raw)
-            events = service.submit(samples, sr, params)
-            fmt = query.get("format", ["json"])[-1]
-            duration = len(samples) / sr
-            if fmt == "json":
-                self._send(200, _events_json(events, duration), "application/json")
-            elif fmt == "csv":
-                self._send(200, _events_csv(events), "text/csv")
-            elif fmt in ("midi", "mid"):
-                tempo = float(query.get("midi_tempo", ["120"])[-1])
-                multi = query.get("multiple_pitch_bends", ["0"])[-1].lower() in (
-                    "1",
-                    "true",
-                    "yes",
-                )
-                self._send(200, _events_midi(events, tempo, multi), "audio/midi")
-            else:
-                raise RequestError(f"unknown format {fmt!r} (json|csv|midi)")
-        except RequestError as err:
-            self._send_json(400, {"error": str(err)})
-        except OverloadedError as err:
-            # load shed: bounded queue is full — tell the client to back off
-            self.send_response(503)
-            body = json.dumps({"error": str(err)}).encode()
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.send_header("Retry-After", "1")
-            self.end_headers()
-            self.wfile.write(body)
-        except DeadlineExceeded as err:
-            self._send_json(504, {"error": str(err)})
-        except Exception as err:  # noqa: BLE001 — server stays up
-            import logging
+        with profiling.span("bp.serve.request"):
+            try:
+                max_body = getattr(self.server, "max_body_bytes", MAX_BODY_BYTES)
+                length = int(self.headers.get("Content-Length", "0"))
+                if length > max_body:
+                    # body is left unread: drop the connection after replying
+                    self.close_connection = True
+                    self._send_json(
+                        413, {"error": f"body exceeds {max_body} bytes"}
+                    )
+                    return
+                raw = self.rfile.read(length)
+                query = parse_qs(url.query)
+                params = _parse_params(query)
+                samples, sr = decode_wav_request(raw)
+                events = service.submit(samples, sr, params)
+                fmt = query.get("format", ["json"])[-1]
+                duration = len(samples) / sr
+                if fmt == "json":
+                    self._send(200, _events_json(events, duration), "application/json")
+                elif fmt == "csv":
+                    self._send(200, _events_csv(events), "text/csv")
+                elif fmt in ("midi", "mid"):
+                    tempo = float(query.get("midi_tempo", ["120"])[-1])
+                    multi = query.get("multiple_pitch_bends", ["0"])[-1].lower() in (
+                        "1",
+                        "true",
+                        "yes",
+                    )
+                    self._send(200, _events_midi(events, tempo, multi), "audio/midi")
+                else:
+                    raise RequestError(f"unknown format {fmt!r} (json|csv|midi)")
+            except RequestError as err:
+                self._send_json(400, {"error": str(err)})
+            except OverloadedError as err:
+                # load shed: bounded queue is full — tell the client to back off
+                self.send_response(503)
+                body = json.dumps({"error": str(err)}).encode()
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.send_header("Retry-After", "1")
+                self.end_headers()
+                self.wfile.write(body)
+            except DeadlineExceeded as err:
+                self._send_json(504, {"error": str(err)})
+            except Exception as err:  # noqa: BLE001 — server stays up
+                import logging
 
-            logging.getLogger(__name__).exception("transcribe failed")
-            self._send_json(500, {"error": f"{type(err).__name__}: {err}"})
+                logging.getLogger(__name__).exception("transcribe failed")
+                self._send_json(500, {"error": f"{type(err).__name__}: {err}"})
 
 
 class _Server(ThreadingHTTPServer):

@@ -21,6 +21,10 @@ process steps on its slice of the global batch with ``all_sum``, and the
 step equals one process stepping on the whole batch (see `train_step`).
 `fit` does so when the process group spans processes; only process 0 then
 writes checkpoints, train state and logs.
+
+While a profiler runs (`utils/profiling.py`), `upload_batch` records
+``bp.train.upload`` and `train_step` ``bp.train.step`` with its children
+``bp.train.forward``, ``bp.train.backward`` and ``bp.train.update``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from basic_pitch_torch import constants
 from basic_pitch_torch.models import nmp
 from basic_pitch_torch.models import params as params_io
 from basic_pitch_torch.train import losses
+from basic_pitch_torch.utils import profiling
 
 Batch = Dict[str, Any]  # {"audio": (b, n), "targets": {...}, "weights": {...}}
 Metrics = Dict[str, torch.Tensor]
@@ -184,28 +189,29 @@ def upload_batch(batch: Batch, device: torch.device) -> Tuple[Batch, int]:
         nbytes += x.nbytes
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    out: Batch = {}
-    for key, value in batch.items():
-        if key == "audio_packed":
-            packed, shape = value
-            nbytes += packed.packed_bytes
-            out["audio"] = pcmcodec.decode_to_device(packed, int(np.prod(shape)), device).reshape(shape)
-        elif key == "targets_sparse":
-            heads = {}
-            for head, sp in value.items():
-                idx, val = put(sp["idx"]), put(sp["val"])
-                extra = sp.get("cap", idx.shape[-1]) - idx.shape[-1]
-                if extra > 0:
-                    sentinel = constants.ANNOT_N_FRAMES * _HEAD_BINS[head]
-                    idx = F.pad(idx, (0, extra), value=sentinel)
-                    val = F.pad(val, (0, extra))
-                heads[head] = {"idx": idx, "val": val}
-            out[key] = heads
-        elif isinstance(value, dict):
-            out[key] = {k: put(v) for k, v in value.items()}
-        else:
-            out[key] = put(value)
-    return out, nbytes
+    with profiling.span("bp.train.upload"):
+        out: Batch = {}
+        for key, value in batch.items():
+            if key == "audio_packed":
+                packed, shape = value
+                nbytes += packed.packed_bytes
+                out["audio"] = pcmcodec.decode_to_device(packed, int(np.prod(shape)), device).reshape(shape)
+            elif key == "targets_sparse":
+                heads = {}
+                for head, sp in value.items():
+                    idx, val = put(sp["idx"]), put(sp["val"])
+                    extra = sp.get("cap", idx.shape[-1]) - idx.shape[-1]
+                    if extra > 0:
+                        sentinel = constants.ANNOT_N_FRAMES * _HEAD_BINS[head]
+                        idx = F.pad(idx, (0, extra), value=sentinel)
+                        val = F.pad(val, (0, extra))
+                    heads[head] = {"idx": idx, "val": val}
+                out[key] = heads
+            elif isinstance(value, dict):
+                out[key] = {k: put(v) for k, v in value.items()}
+            else:
+                out[key] = put(value)
+        return out, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -424,15 +430,18 @@ def train_step(
     statistics' gradient, and the gradients are then summed over processes,
     not averaged: the sum of the shares' gradients is the global loss's
     gradient. Every process then applies the same update."""
-    batch = materialize_batch(batch)
-    with precision_scope(config.precision):
-        optimizer.zero_grad(set_to_none=True)
-        total, per_head, stats = loss_and_stats(model, batch, config, all_sum=all_sum)
-        total.backward()
-        if all_sum is not None:
-            sum_gradients(model, all_sum)
-        apply_update(model, optimizer, stats, config)
-    return _metrics(total, per_head, all_sum)
+    with profiling.span("bp.train.step"), precision_scope(config.precision):
+        with profiling.span("bp.train.forward"):
+            batch = materialize_batch(batch)
+            optimizer.zero_grad(set_to_none=True)
+            total, per_head, stats = loss_and_stats(model, batch, config, all_sum=all_sum)
+        with profiling.span("bp.train.backward"):
+            total.backward()
+            if all_sum is not None:
+                sum_gradients(model, all_sum)
+        with profiling.span("bp.train.update"):
+            apply_update(model, optimizer, stats, config)
+        return _metrics(total, per_head, all_sum)
 
 
 @torch.no_grad()

@@ -1584,13 +1584,13 @@ def measure_corpus(root: pathlib.Path, n_tracks: int, seconds: float) -> List[Tu
 
 
 def trace_summary(path: pathlib.Path, region: str) -> dict:
-    """What a `profiling.trace` file says about the annotated ``region``:
+    """What a `profiling.trace` file says about the span ``region``:
     the window (the region's host span), the CUDA kernels in it, their
     device time (ms by name), the device's busy share (the union of kernel intervals
     over the window) and the top 5 kernels by device time with their share
     of all kernel time. Fails when the trace holds no CUDA kernel."""
     events = json.loads(path.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("ph") == "X" and e.get("name") == region and e.get("cat") == "user_annotation"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("name") == region and e.get("cat") == "cpu_op"]
     if not spans:
         raise AssertionError(f"the trace holds no {region!r} region")
     lo = float(spans[0]["ts"])
@@ -1765,13 +1765,12 @@ def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
     torch.cuda.reset_peak_memory_stats()
     before_bytes = profiling.device_memory_stats()["allocated_bytes.all.current"]
     trace_dir = REPO / "basic_pitch_torch" / "build" / "measure_trace"
-    region = "transcribe 60 s"
+    region = "bp.transcriber.batch"  # the span `transcribe` opens
     greedy_kernel.launches = 0
     pcmcodec.launches = 0
     t0 = time.perf_counter()
     with profiling.trace(trace_dir):
-        with profiling.annotate(region):
-            events = tr.transcribe(audio, SR)
+        events = tr.transcribe(audio, SR)
     traced_s = time.perf_counter() - t0
     launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
     if launches["greedy_decode"] != 1:

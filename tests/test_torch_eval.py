@@ -130,22 +130,6 @@ def test_eval_f1():
     assert t_eval.precision_recall_f1([], [])["f1"] == 0.0
 
 
-def test_profiling_timers():
-    """A copy of `tests/test_train.py::test_profiling_timers` on the port."""
-    from basic_pitch_torch.utils.profiling import Timers
-
-    timers = Timers()
-    with timers("a"):
-        pass
-    with timers("a"):
-        pass
-    with timers("b"):
-        pass
-    rows = {name: count for name, _, count in timers.summary()}
-    assert rows == {"a": 2, "b": 1}
-    assert "a" in timers.report()
-
-
 # --- the CLI cases of tests/test_eval_cli.py, port against JAX ----------------
 
 
