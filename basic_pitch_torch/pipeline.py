@@ -2,30 +2,39 @@
 note events.
 
 PyTorch counterpart of `basic_pitch_tpu/pipeline.py`. A recording is
-uploaded in pieces of W model windows; per piece, on the device:
+uploaded in pieces of at most W model windows, its last piece carrying only
+the windows the recording needs; per piece, on the device:
 
     raw PCM piece: float32, or int16 scaled by 1/32768 on the device, or
       int16 packed on host threads by the lossless codec and decoded by the
       `pcm_decode` kernel (`ops/pcmcodec.py`; `pcm_transport`)
       -> anti-aliased decimation to 22.05 kHz when the input is 44.1 kHz
-      -> unfold into W overlapping 43 844-sample windows
-      -> NMP model (CQT -> harmonic stack -> conv heads) on the windows of
-         `compute_group` pieces at once, split back per piece
-      -> 15-frame overlap trim per window, windows folded into time
-      -> per-frame bend matrix
+      -> unfold into its overlapping 43 844-sample windows
 
-then, once per recording, the greedy note decode (the CUDA kernel of
-`decode/greedy_kernel.py` on a GPU, its plain version on the CPU) and the
-per-note bend gather. Only the note count, then count-sized note buffers,
-cross back to the host, where events are assembled.
+On one device the windows of every recording of a call are laid out one
+after another, each recording at the offset where the one before it ends,
+and the NMP model (CQT -> harmonic stack -> conv heads) runs on them in
+shared W-window chunks: a (k*W, 43 844) batch whenever ``compute_group`` x W
+windows are in, and, once the call's last recording is in, the rest padded
+once to whole chunks. The model is window-local (batch norm in eval mode),
+so a window's outputs do not depend on its neighbours in the batch. The
+outputs are trimmed by 15 frames at each window's edge, get the per-frame
+bend matrix, and split back by window ranges into each recording's (n*142,
+F) outputs; then, once per recording, as soon as its last window has run,
+the greedy note decode (the CUDA kernel of `decode/greedy_kernel.py` on a
+GPU, its plain version on the CPU) and the per-note bend gather. Only the
+note count, then count-sized note buffers, cross back to the host, where
+events are assembled.
 
-Over a list of devices (``devices=``, JAX's ``mesh=``), each piece is cut
-into one row per device: row r holds that shard's W/N windows plus the
-overlap halo (and, at 44.1 kHz, the decimator's), uploads to devices[r]
-alone (through the codec there when it applies), and is decimated,
-unfolded, run through that device's copy of the model and trimmed there.
-The rows' outputs are concatenated in row order on devices[0], where the
-bend matrix and the decode run. A decode that
+Over a list of several devices (``devices=``, JAX's ``mesh=``; a list of
+one is one device), each recording runs
+on its own in whole W-window chunks, and each chunk is cut into one row per
+device: row r holds that shard's W/N windows plus the overlap halo (and, at
+44.1 kHz, the decimator's), uploads to devices[r] alone (through the codec
+there when it applies), and is decimated, unfolded, run through that
+device's copy of the model and trimmed there. The rows' outputs are
+concatenated in row order on devices[0], where the bend matrix and the
+decode run. A decode that
 overflows its buffers falls back to the host decoder (`decode/notes.py`) on
 the posteriorgrams, and `host_fallbacks` counts it.
 
@@ -39,11 +48,15 @@ after it.
 
 While a profiler runs (`utils/profiling.py`), a call records
 ``bp.transcriber.batch``; per recording ``bp.transcriber.forward`` (with
-``bp.transcriber.upload`` per piece and ``bp.transcriber.model`` per model
-call), ``bp.decode.dispatch``, ``bp.transcriber.fetch`` around each copy to
-the host and ``bp.transcriber.assemble``, under the recording's request id;
-and the counters ``transcriber.windows_needed`` / ``windows_run``, the
-windows the audio covers and those the model ran (whole W-window chunks).
+``bp.transcriber.upload`` per piece, its decimation and unfold included,
+and ``bp.transcriber.model`` per model call: a call shared by several
+recordings belongs to the forward open when it runs), ``bp.decode.dispatch``,
+``bp.transcriber.fetch`` around each copy to the host and
+``bp.transcriber.assemble``, under the recording's request id; and the
+counters ``transcriber.windows_needed`` / ``windows_run``, the windows the
+audio covers and those the model ran (whole W-window chunks), and, on one
+device, ``transcriber.chunks_shared``, the chunks run that held windows of
+more than one recording.
 """
 
 from __future__ import annotations
@@ -90,8 +103,8 @@ def _pack_wire(piece: np.ndarray) -> "Tuple[pcmcodec.PackedPCM, Tuple[np.ndarray
 
 
 def _needed_windows(n_samples: int, is_44k: bool) -> int:
-    """Model windows a recording of ``n_samples`` covers, before its last
-    chunk is padded to W."""
+    """Model windows a recording of ``n_samples`` covers (the windows its
+    outputs need, before any padding to whole W-window chunks)."""
     length = resample_ops.decimate2_output_length(n_samples) if is_44k else n_samples
     return max(1, -(-(length + OVERLAP // 2) // HOP))
 
@@ -137,8 +150,10 @@ class StreamingTranscriber:
             ``mesh``; `parallel.mesh.make_mesh`), which may repeat one: each
             chunk's W windows split into len(devices) rows of W/N windows,
             row r uploaded to and run on devices[r], the outputs gathered and
-            decoded on devices[0]. W must divide by N; ``compute_group`` is
-            then 1. A CUDA device with no GPU raises.
+            decoded on devices[0]; each recording runs on its own, padded to
+            whole chunks (a list of one device shares chunks across
+            recordings, as one device does). W must divide by N;
+            ``compute_group`` is then 1. A CUDA device with no GPU raises.
         precision: numerics of the front end (the decimator's and the CQT's
             matmuls) and, unless ``head_precision`` is given, of the heads:
             "highest" (float32, TF32 off; posteriorgrams within 1e-4 of the
@@ -148,9 +163,9 @@ class StreamingTranscriber:
             means "same as precision".
         conv_impl: the head convs' lowering, "conv" (cuDNN), "im2col",
             "toeplitz[:fb]" or "mxu[:fb]" (`nmp.resolve_conv_impl`).
-        compute_group: k, the uploaded pieces whose windows feed one model
-            call (a (k*W, 43 844) batch, split back per piece before the trim
-            and the bend matrix; a last group of fewer pieces runs as it is).
+        compute_group: k, the W-window chunks of one model call: a (k*W,
+            43 844) batch of the call's windows, whichever recordings
+            they come from (a last group of fewer chunks runs as it is).
             Uploads keep W-window granularity.
         pcm_transport: how int16 recordings reach the device: "codec" (the
             lossless residual codec; raises at construction when its packer
@@ -236,12 +251,14 @@ class StreamingTranscriber:
         self.model = model.to(self.device).eval()
         self.chunk_len = HOP * self.w + OVERLAP  # samples @22.05k per chunk
         self.n_shards = len(self.devices)
+        # over several devices each recording runs on its own, in sharded rows
+        self._sharded = len(self.devices) > 1
         # each shard receives only its own w/N windows plus the overlap halo:
         # per-shard upload bytes are ~1/N of the single device's
         self.w_local = self.w // self.n_shards
         self.row_span = self.w_local * HOP + OVERLAP
         self._row_models = mesh_lib.replicate(self.devices, self.model)
-        self._row_keys = ["default"] if devices is None else [f"{dev}/{r}" for r, dev in enumerate(self.devices)]
+        self._row_keys = [f"{dev}/{r}" for r, dev in enumerate(self.devices)]
         on_gpu = self.device.type == "cuda"
         self.decode_backend = "kernel" if on_gpu else "plain"
         self.host_fallbacks = 0
@@ -295,23 +312,24 @@ class StreamingTranscriber:
         n_frames = int(original_length / HOP * FRAMES_PER_WINDOW)
         return audio, is_44k, n_chunks, n_frames
 
+    @staticmethod
+    def _row(audio: np.ndarray, is_44k: bool, first: int, n: int) -> np.ndarray:
+        """Host samples of windows first .. first + n - 1 of a recording plus
+        the overlap halo (a view where possible, zero-padded edges); a 44.1
+        kHz row carries the decimator's halo on both sides."""
+        lo = first * HOP - OVERLAP // 2
+        span = n * HOP + OVERLAP
+        if is_44k:
+            lo = 2 * lo - _DEC_HALO
+            return _padded_slice(audio, lo, lo + 2 * span + 2 * _DEC_HALO)
+        return _padded_slice(audio, lo, lo + span)
+
     def _pieces(self, audio: np.ndarray, is_44k: bool, n_chunks: int):
-        """Host-side chunk pieces, each a list of rows (views where possible,
-        zero-padded edges): row r covers shard r's w/N windows plus the
-        overlap halo, so no device receives the whole piece (one device gets
-        the whole chunk as its one row); a 44.1 kHz row carries the
-        decimator's halo on both sides."""
-        pad_front = OVERLAP // 2
+        """Host-side whole chunks of a recording, each a list of rows: row r
+        covers shard r's w/N windows plus the overlap halo, so no device
+        receives the whole piece."""
         for c in range(n_chunks):
-            rows = []
-            for r in range(self.n_shards):
-                lo = (c * self.w + r * self.w_local) * HOP - pad_front
-                if is_44k:
-                    lo = 2 * lo - _DEC_HALO
-                    rows.append(_padded_slice(audio, lo, lo + 2 * self.row_span + 2 * _DEC_HALO))
-                else:
-                    rows.append(_padded_slice(audio, lo, lo + self.row_span))
-            yield rows
+            yield [self._row(audio, is_44k, c * self.w + r * self.w_local, self.w_local) for r in range(self.n_shards)]
 
     def _upload(self, piece: np.ndarray, device: torch.device) -> torch.Tensor:
         """Ship one host array (a float32 or int16 row, or a codec wire of
@@ -383,44 +401,116 @@ class StreamingTranscriber:
         x = self._upload(piece, device)
         return x.to(torch.float32) * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
-    def _model_chunks(self, pieces: "list[list[torch.Tensor]]", is_44k: bool) -> "list[Dict[str, torch.Tensor]]":
-        """One model call per device on the windows of its rows of
-        ``pieces`` (a (k*W/N, 43 844) batch each; row r already lies on
-        devices[r]); the outputs come back per piece, trimmed, concatenated
-        in row order on devices[0], with the bend matrix, which is
-        frame-local, so per piece its (frames, 88, 51) gather stays bounded
-        whatever the recording's length."""
+    def _windows(self, x: torch.Tensor, is_44k: bool, n: int, dev: torch.device) -> torch.Tensor:
+        """The (n, 43 844) windows of one uploaded row of n windows (`_row`),
+        decimated first when it is 44.1 kHz audio."""
+        with nmp.precision_scope(self.precision, dev.type):
+            if is_44k:
+                x = resample_ops.decimate2(x, halo=True, n_out=n * HOP + OVERLAP, matrix=self._dec2[dev])
+            return unfold_windows(x.float(), n)
+
+    def _model_call(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One model call on a batch of whole W-window chunks (at most k of
+        them; (n, 43 844) windows on the device): the trimmed (n*142, F)
+        outputs and the bend matrix, which is
+        frame-local, so it is computed per W-window chunk and its (frames,
+        88, 51) gather stays bounded whatever ``compute_group`` is."""
         with profiling.span("bp.transcriber.model"):
-            frames = self.w_local * FRAMES_PER_WINDOW
+            profiling.count("transcriber.windows_run", len(batch))
+            out = self.model(batch, self.precision, self.head_precision, self.conv_impl)
+            out = {k: v[:, TRIM : v.shape[1] - TRIM].reshape(-1, v.shape[2]) for k, v in out.items()}
+            frames = self.w * FRAMES_PER_WINDOW
+            bends = [device_decode.bend_matrix(out["contour"][t : t + frames]) for t in range(0, len(out["contour"]), frames)]
+            out["bends"] = bends[0] if len(bends) == 1 else torch.cat(bends)
+            return out
+
+    def _model_rows(self, rows: "list[torch.Tensor]", is_44k: bool) -> Dict[str, torch.Tensor]:
+        """One model call per device on its row of one chunk (row r already
+        lies on devices[r]; a (W/N, 43 844) batch each); the trimmed outputs
+        are concatenated in row order on devices[0], with the chunk's bend
+        matrix."""
+        with profiling.span("bp.transcriber.model"):
             outs = []
-            for r, (dev, model) in enumerate(zip(self.devices, self._row_models)):
-                windows = []
-                with nmp.precision_scope(self.precision, dev.type):
-                    for rows in pieces:
-                        x = rows[r]
-                        if is_44k:
-                            x = resample_ops.decimate2(x, halo=True, n_out=self.row_span, matrix=self._dec2[dev])
-                        windows.append(unfold_windows(x.float(), self.w_local))
-                batch = windows[0] if len(windows) == 1 else torch.cat(windows)
-                out = model(batch, self.precision, self.head_precision, self.conv_impl)
-                outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(len(pieces), frames, v.shape[2]) for k, v in out.items()})
-            chunks = []
-            for i in range(len(pieces)):
-                if len(outs) == 1:
-                    chunk = {k: v[i] for k, v in outs[0].items()}
-                else:
-                    chunk = {k: torch.cat([o[k][i].to(self.device) for o in outs]) for k in outs[0]}
-                chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
-                chunks.append(chunk)
-            return chunks
+            for x, dev, model in zip(rows, self.devices, self._row_models):
+                out = model(self._windows(x, is_44k, self.w_local, dev), self.precision, self.head_precision, self.conv_impl)
+                outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(-1, v.shape[2]).to(self.device) for k, v in out.items()})
+            chunk = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+            chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
+            return chunk
 
     @torch.inference_mode()
-    def _forward(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
-        """Upload every piece's rows, each to its own device, and run the
-        model on groups of ``compute_group`` pieces. Returns (dict on
-        devices[0] of (n_chunks*W*142, F) "note", "onset", "contour" and
-        int8 "bends", n_frames, n_chunks). ``request`` is the recording's
-        request id in the spans (`utils/profiling.py`)."""
+    def _forward_many(self, recordings: "Sequence[Tuple[np.ndarray, int]]", requests: "Sequence[Optional[int]]"):
+        """Upload the recordings and run the model on their windows; yields
+        (index, outputs, n_frames, n_chunks) per recording as soon as its
+        last window has run, the outputs a dict on devices[0] of "note",
+        "onset", "contour" and int8 "bends", n*142 rows for n needed
+        windows (n_chunks*W*142 over a device list). ``requests`` are the
+        recordings' request ids in the spans (`utils/profiling.py`)."""
+        if self._sharded:
+            for i, ((audio, sample_rate), request) in enumerate(zip(recordings, requests)):
+                yield (i, *self._forward_rows(audio, sample_rate, request))
+            return
+        w, group = self.w, self.compute_group * self.w
+        batch = None  # the next model call's windows, filled in the call's window order
+        fill = run = end = 0  # windows in ``batch``; windows run; windows uploaded
+        starts: List[int] = []  # each recording's first window in the call's order
+        calls: List[Tuple[int, int, Dict[str, torch.Tensor]]] = []  # (first window, windows, outputs)
+        todo: List[Tuple[int, int, int, int]] = []  # (index, end window, n_frames, n_chunks) not yielded yet
+
+        def run_batch(size: int) -> None:
+            nonlocal fill, run
+            batch[fill:size] = 0  # padding, at the end of the call only
+            calls.append((run, fill, self._model_call(batch[:size])))
+            run, fill = run + fill, 0
+
+        for i, ((audio, sample_rate), request) in enumerate(zip(recordings, requests)):
+            with profiling.span("bp.transcriber.forward", request=request):
+                audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
+                n = _needed_windows(len(audio), is_44k)
+                profiling.count("transcriber.windows_needed", n)
+                starts.append(end)
+                end += n
+                todo.append((i, end, n_frames, n_chunks))
+                sizes = [min(w, n - c * w) for c in range(n_chunks)]
+                rows = [self._row(audio, is_44k, c * w, m) for c, m in enumerate(sizes)]
+                # pack on worker threads: piece c+1 packs while piece c uploads
+                pool = self._packer_threads() if self._codec_enabled(audio.dtype) else None
+                packed = [None if pool is None else pool.submit(_pack_wire, row) for row in rows]
+                for row, future, m in zip(rows, packed, sizes):
+                    with profiling.span("bp.transcriber.upload"):
+                        x = self._upload_piece(row, None if future is None else future.result(), self.device, "default")
+                        windows = self._windows(x, is_44k, m, self.device)
+                    if batch is None:
+                        batch = windows.new_empty((group, WINDOW))
+                    while len(windows):
+                        take = min(len(windows), group - fill)
+                        batch[fill : fill + take] = windows[:take]
+                        fill, windows = fill + take, windows[take:]
+                        if fill == group:
+                            run_batch(group)
+                if i == len(recordings) - 1:
+                    if fill:
+                        run_batch(-(-fill // w) * w)
+                    shared = sum(any(c < s < c + w for s in starts) for c in range(0, end, w))
+                    profiling.count("transcriber.chunks_shared", shared)
+            # each recording whose windows have all run, its rows cut from the calls that hold them
+            while todo and todo[0][1] <= run:
+                j, hi, n_frames, n_chunks = todo.pop(0)
+                lo = starts[j]
+                f = FRAMES_PER_WINDOW
+                parts = [
+                    {k: v[(max(lo, a) - a) * f : (min(hi, a + m) - a) * f] for k, v in out.items()}
+                    for a, m, out in calls if a < hi and lo < a + m
+                ]
+                calls = [c for c in calls if c[0] + c[1] > hi]
+                out = parts[0] if len(parts) == 1 else {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+                yield j, out, n_frames, n_chunks
+
+    def _forward_rows(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
+        """One recording over the device list: upload every piece's rows,
+        each to its own device, and run the model on each chunk. Returns
+        (dict on devices[0] of (n_chunks*W*142, F) "note", "onset",
+        "contour" and int8 "bends", n_frames, n_chunks)."""
         with profiling.span("bp.transcriber.forward", request=request):
             audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
             profiling.count("transcriber.windows_needed", _needed_windows(len(audio), is_44k))
@@ -430,20 +520,21 @@ class StreamingTranscriber:
             # pack on worker threads: piece c+1 packs while piece c uploads
             pool = self._packer_threads() if any(codec) else None
             packed = [[pool.submit(_pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
-            chunks: list = []
-            pending: list = []
+            chunks = []
             for rows, futures in zip(pieces, packed):
                 with profiling.span("bp.transcriber.upload"):
-                    pending.append([
+                    uploaded = [
                         self._upload_piece(row, None if future is None else future.result(), dev, key)
                         for row, future, dev, key in zip(rows, futures, self.devices, self._row_keys)
-                    ])
-                if len(pending) == self.compute_group:
-                    chunks += self._model_chunks(pending, is_44k)
-                    pending = []
-            if pending:
-                chunks += self._model_chunks(pending, is_44k)
+                    ]
+                chunks.append(self._model_rows(uploaded, is_44k))
             return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, n_frames, n_chunks
+
+    def _forward(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
+        """One recording's (outputs, n_frames, n_chunks), as `_forward_many`
+        gives them."""
+        ((_, out, n_frames, n_chunks),) = self._forward_many([(audio, sample_rate)], [request])
+        return out, n_frames, n_chunks
 
     def decode_inputs(
         self, out: Dict[str, torch.Tensor], n_frames: int, n_chunks: int
@@ -465,14 +556,17 @@ class StreamingTranscriber:
         return note * valid, onset * valid, bends, cap // 8
 
     @torch.inference_mode()
-    def _dispatch(
-        self, audio: np.ndarray, sample_rate: int, options: DecodeOptions, max_notes: int, keep_outputs: bool = False
-    ) -> dict:
-        """Enqueue uploads, chunk programs and the decode for one recording;
-        nothing waits for the device."""
-        request = profiling.new_request()
-        out, n_frames, n_chunks = self._forward(audio, sample_rate, request)
-        return self._decode_dispatch(out, n_frames, n_chunks, options, max_notes, keep_outputs, request)
+    def _dispatch_many(
+        self, recordings: "Sequence[Tuple[np.ndarray, int]]", options: DecodeOptions, max_notes: int, keep_outputs: bool = False
+    ) -> list:
+        """Enqueue uploads, model calls and the decodes for the recordings,
+        each decode as soon as its recording's windows have run; nothing
+        waits for the device. Returns the tickets in recording order."""
+        requests = [profiling.new_request() for _ in recordings]
+        tickets: list = [None] * len(recordings)
+        for i, out, n_frames, n_chunks in self._forward_many(recordings, requests):
+            tickets[i] = self._decode_dispatch(out, n_frames, n_chunks, options, max_notes, keep_outputs, requests[i])
+        return tickets
 
     @torch.inference_mode()
     def _decode_dispatch(
@@ -639,8 +733,7 @@ class StreamingTranscriber:
             infer_onsets, melodia_trick, include_pitch_bends,
         )
         with profiling.span("bp.transcriber.batch"):
-            ticket = self._dispatch(audio, sample_rate, options, max_notes)
-            return self._collect_many([ticket])[0]
+            return self._collect_many(self._dispatch_many([(audio, sample_rate)], options, max_notes))[0]
 
     def transcribe_batch(
         self,
@@ -657,7 +750,8 @@ class StreamingTranscriber:
         return_model_outputs: bool = False,
     ) -> list:
         """Transcribe many (audio, sample_rate) recordings; every recording is
-        enqueued before the first result is fetched. With
+        enqueued before the first result is fetched, and on one device their
+        windows share model chunks (see the module's doc). With
         ``return_model_outputs`` each result is (events, {"note", "onset",
         "contour"})."""
         options = DecodeOptions(
@@ -665,8 +759,7 @@ class StreamingTranscriber:
             infer_onsets, melodia_trick, include_pitch_bends,
         )
         with profiling.span("bp.transcriber.batch"):
-            tickets = [self._dispatch(audio, sr, options, max_notes, return_model_outputs) for audio, sr in recordings]
-            return self._collect_many(tickets)
+            return self._collect_many(self._dispatch_many(recordings, options, max_notes, return_model_outputs))
 
     def transcribe_file(self, audio_path: "str | pathlib.Path") -> Dict[str, np.ndarray]:
         """Posteriorgrams of a WAV file; 44.1 and 22.05 kHz go to the device

@@ -29,8 +29,8 @@ Phases, each fatal on failure:
      wrapper's time, the plain version's, the pinned copy of the raw int16
      bytes, its bytes bound (the bytes the kernel touches) and, for LPC, its
      chain bound (248 dependent steps at the latency measured on the card),
-     at a full 128-window piece that the codec path decodes (the 10 min
-     recording's last chunk, ~1.39x), in its default mode and forced to LPC,
+     at the piece the codec path decodes (the 10 min recording's last
+     piece, its 110 needed windows, ~1.2x), in its default mode and forced to LPC,
      and at a noisy full chunk that the path sends raw;
   3. the main path at full width: StreamingTranscriber(device="cuda",
      windows_per_chunk=128) with the shipped weights transcribes ~60 s
@@ -55,7 +55,11 @@ Phases, each fatal on failure:
      precision="high" is the control, which must break the bound);
   5. the serving surfaces at full width with the shipped weights: the HTTP
      server (8 concurrent 30 s requests whose events must equal
-     `transcribe` on the card, csv and midi bodies, a chunked /v1/stream
+     `transcribe_batch` on the requests the service grouped, run again,
+     and a lone `transcribe` wherever the group's model calls have its
+     shapes, else agree with it by the one-flip rule with posteriorgrams
+     within 1e-3, since a batch's requests share model chunks; csv and midi
+     bodies, a chunked /v1/stream
      whose events must arrive before the body ends), `predict_and_save`
      against `predict_and_save_streaming` (the one-flip rule, posteriorgrams
      within 1e-4), the predict CLI in a subprocess and the stream CLI; the
@@ -115,8 +119,8 @@ Phases, each fatal on failure:
      against one device at 128 windows, whose cuDNN kernels round apart,
      posteriorgrams within 1e-3 (the card read 2.81e-4) and events by the
      one-flip rule (the amplitude difference printed); one greedy_decode launch per recording
-     (counted as "parallel"), each shard's upload bytes at most the single
-     device's / 2 plus the halo of each chunk, and forced codec launching
+     (counted as "parallel"), each shard's upload bytes at most the
+     recording's whole chunks' / 2 plus the halo of each chunk, and forced codec launching
      pcm_decode once per shard row per chunk ("parallel_codec"); the wall
      of the sharded run against the single device's. Then data-parallel
      training: two `parallel.selfcheck` processes with gloo, both on cuda:0
@@ -403,6 +407,57 @@ def events_agree(events: List[tuple], ref: List[tuple], tol_s: float = 0.05) -> 
     return matched
 
 
+def served_against_groups(
+    tr: Any, groups: list, pcms: List[np.ndarray], served: List[list], lone: List[list], lone_post: List[dict]
+) -> int:
+    """Each served response against its group run again: the service's
+    ``groups`` (recordings and parameters of each `transcribe_batch` call it
+    made) through `transcribe_batch` with the model outputs, whose events
+    must equal the responses bit for bit. Against a lone `transcribe`
+    (``lone``, ``lone_post``): posteriorgrams within 1e-3; events equal where
+    the group's model calls have the lone request's shapes, else the
+    one-flip rule with the amplitudes and pitch bends of events of the same
+    start, end and pitch within 1e-3 and 1. Returns how many responses equal
+    the lone events."""
+    from basic_pitch_torch import pipeline
+
+    def call_sizes(recordings: list) -> List[int]:
+        chunks = -(-sum(pipeline._needed_windows(len(a), sr != SR) for a, sr in recordings) // tr.w)
+        return [min(tr.compute_group, chunks - c) * tr.w for c in range(0, chunks, tr.compute_group)]
+
+    def as_json(events: list) -> list:
+        return [(s, e, p, a, list(b) if b is not None else None) for s, e, p, a, b in events]
+
+    seen, equal = [], 0
+    for recordings, params in groups:
+        owners = [next(i for i, x in enumerate(pcms) if len(x) == len(a) and np.array_equal(x, a)) for a, _ in recordings]
+        again = tr.transcribe_batch(recordings, return_model_outputs=True, **params)
+        sizes = call_sizes(recordings)
+        for i, (events, outputs), rec in zip(owners, again, recordings):
+            if served[i] != as_json(events):
+                raise AssertionError(f"request {i}: served events differ from transcribe_batch on its group {owners}")
+            gap = max(float(np.abs(outputs[k] - lone_post[i][k]).max()) for k in lone_post[i])
+            if gap > 1e-3:
+                raise AssertionError(f"request {i} in group {owners}: posteriorgrams {gap:.3g} from a lone call (bound 1e-3)")
+            want = as_json(lone[i])
+            if sizes == call_sizes([rec]) and served[i] != want:
+                raise AssertionError(f"request {i} in group {owners}, model calls {sizes} as a lone call's: events differ")
+            events_agree(served[i], want)
+            twins = {tuple(e[:3]): e for e in want}
+            for s, e, p, a, b in served[i]:
+                x = twins.get((s, e, p))
+                if x is None:
+                    continue
+                bend_gap = max((abs(u - v) for u, v in zip(b or [], x[4] or [])), default=0)
+                if abs(a - x[3]) > 1e-3 or (b is None) != (x[4] is None) or len(b or []) != len(x[4] or []) or bend_gap > 1:
+                    raise AssertionError(f"request {i} in group {owners}: note ({s}, {e}, {p}) amplitude or bends apart")
+            equal += served[i] == want
+        seen += owners
+    if sorted(seen) != list(range(len(pcms))):
+        raise AssertionError(f"the service's groups hold requests {sorted(seen)}")
+    return equal
+
+
 def post_stream(base: str, pcm: np.ndarray, piece_s: float = 1.0) -> Tuple[List[dict], float, bool]:
     """POST raw s16le to /v1/stream with a chunked body. Returns (events,
     seconds from the first byte sent to the first event, whether an event
@@ -527,15 +582,17 @@ def serving_phase() -> dict:
     # ---- HTTP: 8 concurrent 30 s requests, csv, midi, one stream ----
     transcriber = pipeline.StreamingTranscriber(windows_per_chunk=128)
     serve_cli._warm(transcriber, "10")
-    wavs, expected = [], []
+    wavs, pcms, expected, expected_post = [], [], [], []
     for i in range(8):
         y, _ = tone_mix(SR, 30.0, seed=400 + i, voices=1 if i < 4 else 8)
         buf = io.BytesIO()
         audio_io.write_wav(buf, y, SR)
         wavs.append(buf.getvalue())
+        pcms.append(np.frombuffer(wavs[-1][44:], "<i2"))
         # the reference: the same int16 samples through transcribe, on this
         # thread, before the service's dispatch thread owns the transcriber
-        expected.append(transcriber.transcribe(np.frombuffer(wavs[-1][44:], "<i2"), SR))
+        expected.append(transcriber.transcribe(pcms[-1], SR))
+        expected_post.append(transcriber.posteriorgrams(pcms[-1], SR))
     stream_audio, stream_notes = tone_mix(SR, 20.0, seed=500)
     stream_pcm = np.clip(np.round(stream_audio * 32768.0), -32768, 32767).astype(np.int16)
 
@@ -556,6 +613,14 @@ def serving_phase() -> dict:
             raise AssertionError(f"/healthz on the card says {info}")
         greedy_kernel.launches = 0
         m0 = service.snapshot_metrics()
+        # the service's transcribe_batch calls, each with the recordings it grouped
+        groups: List[Tuple[List[Tuple[np.ndarray, int]], dict]] = []
+
+        def spy(recordings: List[Tuple[np.ndarray, int]], **params: Any) -> list:
+            groups.append(([(np.array(a), sr) for a, sr in recordings], params))
+            return batch_call(recordings, **params)
+
+        batch_call, transcriber.transcribe_batch = transcriber.transcribe_batch, spy
         results: List[Any] = [None] * 8
         latency = [0.0] * 8
         barrier = threading.Barrier(8)
@@ -573,13 +638,14 @@ def serving_phase() -> dict:
         for t in threads:
             t.join(timeout=120)
         wall = time.perf_counter() - t0
+        del transcriber.transcribe_batch  # the spy
         m1 = service.snapshot_metrics()
+        served = []
         for i, (status, body) in enumerate(results):
+            if status != 200:
+                raise AssertionError(f"request {i}: status {status}")
             notes = json.loads(body)["notes"]
-            got = [(n["start_time_s"], n["end_time_s"], n["pitch_midi"], n["amplitude"], n["pitch_bends"]) for n in notes]
-            want = [(s, e, p, a, list(b) if b is not None else None) for s, e, p, a, b in expected[i]]
-            if status != 200 or got != want:
-                raise AssertionError(f"request {i}: status {status}, {len(got)} events, transcribe gave {len(want)}")
+            served.append([(n["start_time_s"], n["end_time_s"], n["pitch_midi"], n["amplitude"], n["pitch_bends"]) for n in notes])
         batches = m1["batches"] - m0["batches"]
         if not batches < 8:
             raise AssertionError(f"8 concurrent requests took {batches} batches: no batching")
@@ -602,6 +668,7 @@ def serving_phase() -> dict:
         thread.join(timeout=30)
         service.close()
 
+    served_equal = served_against_groups(transcriber, groups, pcms, served, expected, expected_post)
     requests = m2["requests"] - m0["requests"]
     flushes = m3["stream_flushes"] - m2["stream_flushes"]
     if launches["serve"] < requests or launches["stream_route"] < flushes or flushes < 1:
@@ -617,7 +684,8 @@ def serving_phase() -> dict:
         f"serve: 8 concurrent 30 s requests (4 sparse, 4 8-voice) in {wall * 1e3:.1f} ms, "
         f"{8 / wall:.1f} requests/s; latency p50 {np.median(lat) * 1e3:.1f} ms, max {lat.max() * 1e3:.1f} ms; "
         f"{batches} batches ({batches / 8:.3f} per request); x_realtime_busy {m1['x_realtime_busy']} "
-        f"(service lifetime {m2['x_realtime_busy']}); events equal transcribe on all 8; csv and midi bytes equal"
+        f"(service lifetime {m2['x_realtime_busy']}); events equal transcribe_batch on the service's groups on all 8 "
+        f"(equal to a lone transcribe on {served_equal}); csv and midi bytes equal"
     )
     print(
         f"serve: /v1/stream of 20 s: {flushes} flushes, {len(stream_events)} events, recall {r_stream:.3f}, "
@@ -1056,8 +1124,8 @@ def lpc_chain_bound(steps: int = 1 << 20) -> Tuple[float, float, float]:
 
 def codec_kernel_phase(piece: np.ndarray, path_piece: np.ndarray) -> dict:
     """pcm_decode against its plain version on the card, bit for bit, and
-    both against pcm / 32768; then, at ``path_piece``, a full 128-window
-    piece that the codec path decodes (it packs smaller than raw), in its
+    both against pcm / 32768; then, at ``path_piece``, a piece as the
+    codec path cuts and decodes it (it packs smaller than raw), in its
     default mode and forced to LPC, and at ``piece``, a full chunk of noisy
     audio that the path sends raw: the kernel's own device time (a CUDA
     graph, `pcm_decode_device_ms`), the wrapper's time, the plain version's,
@@ -1869,18 +1937,17 @@ def sharded_phase(smi: str, tr: Any, poly_audio: np.ndarray, pcm44: np.ndarray) 
     if max(same.values()) != 0.0 or max(diffs.values()) > 1e-3:
         raise AssertionError(f"sharded posteriorgrams differ: {same} at 64 windows, {diffs} at 128")
 
-    # each shard uploads its own rows: at most the single device's raw bytes
-    # / N plus the halo of each chunk (twice the overlap and the decimator's
-    # halos at 44.1 kHz)
-    single_raw = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, pcm_transport="raw")
+    # each shard uploads its own rows: at most the raw bytes of the
+    # recording's whole 128-window chunks (as the shards run them; one device
+    # packs the windows of a call and uploads fewer) / N plus the halo of
+    # each chunk (twice the overlap and the decimator's halos at 44.1 kHz)
     sharded.piece_upload_bytes.clear()
     sharded.transcribe(pcm44, 2 * SR)
-    single_raw.transcribe(pcm44, 2 * SR)
     per_shard = dict(sharded.piece_upload_bytes)
-    total_single = sum(single_raw.piece_upload_bytes.values())
     n_chunks = sharded._geometry(pcm44, 2 * SR)[2]
-    bound = total_single / len(devices) + n_chunks * 2 * (pipeline.OVERLAP + pipeline._DEC_HALO) * pcm44.itemsize
-    print(f"upload bytes per shard [60 s at 44.1 kHz int16]: {json.dumps(per_shard)}; single device {total_single} B; "
+    total_whole = sum(pipeline.StreamingTranscriber._row(pcm44, True, c * 128, 128).nbytes for c in range(n_chunks))
+    bound = total_whole / len(devices) + n_chunks * 2 * (pipeline.OVERLAP + pipeline._DEC_HALO) * pcm44.itemsize
+    print(f"upload bytes per shard [60 s at 44.1 kHz int16]: {json.dumps(per_shard)}; whole chunks {total_whole} B; "
           f"bound {bound:.0f} B (1/{len(devices)} + the halo of {n_chunks} chunk(s))")
     keys = [f"{pipeline.resolve_device(d)}/{r}" for r, d in enumerate(devices)]
     if sorted(per_shard) != keys or max(per_shard.values()) > bound:
@@ -2178,12 +2245,13 @@ def main() -> int:
         count, ovf, iters, rewalks = meta.cpu().tolist()
         print(f"kernel counters [{name}]: {count} notes, overflow {ovf}, {iters} melodia iterations, {rewalks} re-walks")
 
-    # pcm_decode: the 10 min recording's pieces are full 128-window chunks;
-    # the last (180 s real of 210) packs smaller than raw and the codec path
-    # decodes it, the first is noisy audio that packs larger and goes raw
+    # pcm_decode at the path's own shapes: the 10 min recording's last piece
+    # (its needed windows past the first two 128-window pieces, 110, and no
+    # zero tail) packs smaller than raw and the codec path decodes it; a full
+    # chunk of its noisy start packs larger and goes raw
     chunk_len = 128 * pipeline.HOP + pipeline.OVERLAP
-    last_lo = 2 * 128 * pipeline.HOP - pipeline.OVERLAP // 2
-    codec_row = codec_kernel_phase(pcm10[:chunk_len], pipeline._padded_slice(pcm10, last_lo, last_lo + chunk_len))
+    n_last = pipeline._needed_windows(len(pcm10), False) - 2 * 128
+    codec_row = codec_kernel_phase(pcm10[:chunk_len], pipeline.StreamingTranscriber._row(pcm10, False, 256, n_last))
 
     tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128)
     main_audio, main_notes = tone_mix(SR, 60.0, seed=100)

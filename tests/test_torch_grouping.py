@@ -9,6 +9,7 @@ a remainder group (2+2+1 at k = 2, 3+2 at k = 3).
 
 import numpy as np
 import pytest
+import torch
 
 from basic_pitch_torch import pipeline as t_pipeline
 from basic_pitch_tpu import pipeline as j_pipeline
@@ -60,20 +61,32 @@ def test_grouped_matches_jax_grouped(by_k, audio):
 def test_grouped_upload_reuses_the_pinned_buffer_safely():
     """Each upload waits for the previous copy out of the single pinned
     buffer before overwriting it: on the CPU no buffer is used, so the
-    contract reduces to every piece arriving intact in group order."""
-    y = tone_mix(SR, seconds=14.0, seed=5)
+    contract reduces to every piece arriving intact (the last one with its
+    one needed window only) and the model calls taking their windows in
+    order, k*W at a time and the rest padded to a whole chunk."""
+    y = np.ascontiguousarray(tone_mix(SR, seconds=14.0, seed=5))
     tr = t_pipeline.StreamingTranscriber(windows_per_chunk=2, device="cpu", compute_group=2)
-    seen = []
-    real = tr._model_chunks
+    uploaded, calls = [], []
+    real_upload, real_call = tr._upload_piece, tr._model_call
 
-    def spy(pieces, is_44k):
-        seen.append([rows[0].clone() for rows in pieces])  # one device: one row per piece
-        return real(pieces, is_44k)
+    def upload(piece, packed, device, key):
+        x = real_upload(piece, packed, device, key)
+        uploaded.append(x.clone())
+        return x
 
-    tr._model_chunks = spy
+    def call(batch):
+        calls.append(batch.clone())
+        return real_call(batch)
+
+    tr._upload_piece, tr._model_call = upload, call
     tr.posteriorgrams(y, SR)
-    assert [len(group) for group in seen] == [2, 2, 1]
-    hosts = [rows[0] for rows in tr._pieces(np.ascontiguousarray(y), False, 5)]
-    flat = [p for group in seen for p in group]
-    for got, want in zip(flat, hosts):
+    assert [len(batch) for batch in calls] == [4, 4, 2]
+    sizes = [2, 2, 2, 2, 1]  # nine windows
+    hosts = [tr._row(y, False, 2 * c, m) for c, m in enumerate(sizes)]
+    assert len(uploaded) == len(hosts)
+    for got, want in zip(uploaded, hosts):
         np.testing.assert_array_equal(got.numpy(), want)
+    windows = torch.cat([t_pipeline.unfold_windows(x, m) for x, m in zip(uploaded, sizes)])
+    run = torch.cat(calls)
+    torch.testing.assert_close(run[:9], windows, rtol=0, atol=0)
+    assert not run[9:].any()  # the padding of the last chunk

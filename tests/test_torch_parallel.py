@@ -138,6 +138,19 @@ def test_sharded_equals_single_device_at_the_shard_batch(rate):
         np.testing.assert_array_equal(got[key], ref[key])
 
 
+def test_device_list_events_equal_one_device_in_a_multi_recording_call():
+    """A call of three recordings (22.05 and 44.1 kHz): the device list runs
+    each on its own in whole chunks of two rows, the one device packs the
+    call's windows into shared chunks; the same windows through the same
+    kernels give the same events, bit for bit."""
+    recordings = [
+        (tone_mix(SR, 4.0, seed=1), SR), (to_pcm16(np.repeat(tone_mix(SR, 3.0, seed=2), 2)), 2 * SR), (tone_mix(SR, 7.0, seed=3), SR)]
+    sharded = t_pipeline.StreamingTranscriber(windows_per_chunk=4, devices=["cpu"] * 2, pcm_transport="raw")
+    single = t_pipeline.StreamingTranscriber(windows_per_chunk=2, device="cpu", pcm_transport="raw")
+    got = sharded.transcribe_batch(recordings)
+    assert all(got) and got == single.transcribe_batch(recordings)
+
+
 def test_windows_must_divide_across_devices():
     with pytest.raises(ValueError, match="must divide across 4 devices"):
         t_pipeline.StreamingTranscriber(windows_per_chunk=6, devices=["cpu"] * 4)

@@ -215,13 +215,25 @@ def _codec_and_raw(pcm, sr):
     return raw, codec, ev_raw, ev_codec, post_raw, post_codec
 
 
-@pytest.mark.parametrize("sr", [SR, 2 * SR])
-def test_codec_transcriber_equals_raw(sr):
+@pytest.mark.parametrize(
+    "sr,seconds,level",
+    [
+        pytest.param(SR, 4.5, 0.05, id=f"{SR}"),
+        pytest.param(2 * SR, 4.5, 0.05, id=f"{2 * SR}"),
+        pytest.param(SR, 5.0, 0.5, id=f"{SR}-loud"),
+        pytest.param(2 * SR, 5.0, 0.5, id=f"{2 * SR}-loud"),
+    ],
+)
+def test_codec_transcriber_equals_raw(sr, seconds, level):
     """int16 at 22.05 and 44.1 kHz: the decoded pieces are the exact samples
     the raw path scales on the device, so posteriorgrams and events are
-    identical; the codec ships fewer bytes."""
+    identical; the codec ships fewer bytes. A quiet 4.5 s mix packs smaller
+    on its content alone; a loud mix's full pieces do not, and at 5 s the
+    codec gains only on the last piece, whose last window covers zeros past
+    the recording's end."""
     rng = np.random.RandomState(3)
-    pcm = to_pcm16(tone_mix(sr, seconds=4.5, seed=1) * 0.5 + 0.001 * rng.randn(int(4.5 * sr)).astype(np.float32))
+    noise = 0.002 * level * rng.randn(int(seconds * sr)).astype(np.float32)
+    pcm = to_pcm16(tone_mix(sr, seconds=seconds, seed=1) * level + noise)
     raw, codec, ev_raw, ev_codec, post_raw, post_codec = _codec_and_raw(pcm, sr)
     assert ev_codec == ev_raw and len(ev_raw) >= 3
     for key in post_raw:

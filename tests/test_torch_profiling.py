@@ -237,19 +237,24 @@ def test_traced_transcribe_batch_gives_the_span_tree_per_recording():
     for g, x in zip(got, want):
         assert all(np.array_equal(g[1][k], x[1][k]) for k in x[1])
     summary = profiling.summary()
-    assert summary["counters"] == {"transcriber.windows_needed": 4, "transcriber.windows_run": (2 + 1) * w}
+    # packed: a's three windows and b's one fill two shared chunks, the
+    # second holding windows of both
+    assert summary["counters"] == {
+        "transcriber.windows_needed": 4, "transcriber.windows_run": 2 * w, "transcriber.chunks_shared": 1}
     spans = profiling.spans()
     by_id, children = _tree(spans)
     (batch,) = profiling.spans("bp.transcriber.batch")
     forwards = profiling.spans("bp.transcriber.forward")
     assert [f.parent for f in forwards] == [batch.id] * 2
     assert len({f.request for f in forwards} | {batch.request}) == 3
-    for forward, n_chunks in zip(forwards, (2, 1)):
+    # the one model call (k * w = 4 windows) runs once b's window is in, so
+    # it belongs to b's forward
+    for forward, n_chunks, n_models in zip(forwards, (2, 1), (0, 1)):
         mine = [s for s in spans if s.request == forward.request]
         assert sorted(s.name for s in mine) == sorted(
-            ["bp.transcriber.forward", "bp.transcriber.model", "bp.decode.dispatch", "bp.transcriber.fetch",
-             "bp.transcriber.assemble", "bp.transcriber.fetch"] + ["bp.transcriber.upload"] * n_chunks)
-        assert sorted(children[forward.id]) == ["bp.transcriber.model"] + ["bp.transcriber.upload"] * n_chunks
+            ["bp.transcriber.forward", "bp.decode.dispatch", "bp.transcriber.fetch", "bp.transcriber.assemble",
+             "bp.transcriber.fetch"] + ["bp.transcriber.model"] * n_models + ["bp.transcriber.upload"] * n_chunks)
+        assert sorted(children[forward.id]) == ["bp.transcriber.model"] * n_models + ["bp.transcriber.upload"] * n_chunks
         (assemble,) = [s for s in mine if s.name == "bp.transcriber.assemble"]
         assert children[assemble.id] == ["bp.transcriber.fetch"]  # the posteriorgrams
         assert {by_id[s.parent].name for s in mine if s.name in ("bp.decode.dispatch", "bp.transcriber.fetch")} == {
