@@ -195,3 +195,22 @@ def compare(ctx, pool, sample, kept, decode) -> Dict[str, float]:
         numbers["event_amp_gap"] = max(numbers["event_amp_gap"], whole["amp_gap"])
     ctx.log(f"check of {len(sample)} recordings took {time.monotonic() - t0:.1f} s")
     return numbers
+
+
+def tiny_recordings(cell: "bench.Cell") -> None:
+    """Cut a transcriber cell's recordings and chunks to a CPU test run's
+    size (shared with the serve kind)."""
+    cell.config["transcriber"].update(windows_per_chunk=2, pcm_transport="raw")
+    cell.traffic.update(pool=4, snippet_s=2, snippets_per_level=1, check_sample=2)
+    d = cell.traffic["durations"]
+    cell.traffic["durations"] = {"dist": "fixed", "seconds": 3} if d["dist"] == "fixed" else {"dist": "loguniform", "min_s": 2, "max_s": 5}
+
+
+def tiny(cell: "bench.Cell") -> "bench.Cell":
+    """The cell cut to a size a CPU test run holds: the same code paths,
+    small chunks, short recordings, small batches, and the seconds a
+    test run measures (``test_seconds``). The harness's tests call it; a
+    run on the card never does."""
+    tiny_recordings(cell)
+    cell.traffic.update(batch=2, test_seconds=2.0)
+    return cell

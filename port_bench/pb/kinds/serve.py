@@ -34,7 +34,7 @@ import numpy as np
 
 from pb import bench, check, traffic
 from pb import trace as tracing
-from pb.kinds.offline import ControlTranscriber, make_transcriber
+from pb.kinds.offline import ControlTranscriber, make_transcriber, tiny_recordings
 from reference import nmp as ref_nmp
 
 WAIT_S = 60.0  # an answer is waited for this long past the last due time
@@ -239,3 +239,13 @@ def control(ctx) -> "bench.Outcome":
     numbers["error_answers"] = 0.0
     return bench.Outcome(attempted=len(clips), failed=0, stats={"kind": "serve", "setup_s": 0.0, "latencies_s": [0.0], "requests": 0, "batches": 0},
                          numbers=numbers, memory_peak_bytes=0)
+
+
+def tiny(cell: "bench.Cell") -> "bench.Cell":
+    """The cell cut to a size a CPU test run holds (see the offline kind's
+    ``tiny``), at a low rate and small server batches, over a window
+    long enough for its load to arrive."""
+    tiny_recordings(cell)
+    cell.traffic.update(rate_per_s=1.5, test_seconds=3.0)
+    cell.traffic["server"]["max_batch"] = 2
+    return cell

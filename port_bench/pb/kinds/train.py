@@ -238,3 +238,12 @@ def compare(ctx, init, batches: List[Dict], losses: List[float], first: Dict, af
         f"{sorted(set(ref_after) - set(moving))}; took {time.monotonic() - t:.1f} s"
     )
     return numbers
+
+
+def tiny(cell: "bench.Cell") -> "bench.Cell":
+    """The cell cut to a size a CPU test run holds: batch 2, a pool of 4,
+    a test run of 1 s. The harness's tests call it; a run on the card
+    never does."""
+    cell.config["train"]["batch_size"] = 2
+    cell.traffic.update(pool=4, test_seconds=1.0)
+    return cell

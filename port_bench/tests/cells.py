@@ -1,8 +1,10 @@
 """Cells cut to a size a CPU test run holds: the same code paths, small
-chunks, short recordings, small batches."""
+chunks, short recordings, small batches, each by its kind's ``tiny``."""
 
+import importlib
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -21,6 +23,10 @@ UNLISTED = {
 }
 
 
+# every cell the harness's tests drive: BENCHMARK.json's, then the unlisted
+CELLS = [w["name"] for w in json.loads((bench.ROOT / "BENCHMARK.json").read_text())["workloads"]] + list(UNLISTED)
+
+
 def load(workload: str) -> bench.Cell:
     if workload not in UNLISTED:
         return bench.load_cell(workload)
@@ -37,25 +43,16 @@ def load(workload: str) -> bench.Cell:
 
 
 def tiny(workload: str) -> bench.Cell:
+    """The cell cut by its kind's own ``tiny``."""
     cell = load(workload)
-    kind = cell.traffic["kind"]
-    if kind in ("offline", "serve"):
-        cell.config["transcriber"].update(windows_per_chunk=2, pcm_transport="raw")
-        cell.traffic.update(pool=4, snippet_s=2, snippets_per_level=1, check_sample=2)
-        d = cell.traffic["durations"]
-        cell.traffic["durations"] = {"dist": "fixed", "seconds": 3} if d["dist"] == "fixed" else {"dist": "loguniform", "min_s": 2, "max_s": 5}
-    if kind == "offline":
-        cell.traffic["batch"] = 2
-    if kind == "serve":
-        cell.traffic.update(rate_per_s=1.5)
-        cell.traffic["server"]["max_batch"] = 2
-    if kind == "train":
-        cell.config["train"]["batch_size"] = 2
-        cell.traffic.update(pool=4)
-    return cell
+    return importlib.import_module(f"pb.kinds.{cell.traffic['kind']}").tiny(cell)
 
 
-def execute(workload: str, seconds: float = 2.0, trace: bool = False) -> dict:
-    ctx = bench.Context(cell=tiny(workload), seed=SEED, seconds=seconds, trace=trace,
+def execute(workload: str, seconds: Optional[float] = None, trace: bool = False) -> dict:
+    """A run of the cut cell, for ``seconds`` or, by default, the
+    ``test_seconds`` its kind's ``tiny`` set."""
+    cell = tiny(workload)
+    seconds = cell.traffic["test_seconds"] if seconds is None else seconds
+    ctx = bench.Context(cell=cell, seed=SEED, seconds=seconds, trace=trace,
                         device=torch.device("cpu"), t_start=time.monotonic())
     return bench.execute(ctx)

@@ -5,7 +5,7 @@ beside them comes out correct."""
 
 import pytest
 
-from cells import execute
+from cells import CELLS, execute
 
 
 def _half_batch(monkeypatch):
@@ -76,16 +76,9 @@ def _train_unchanged_state(monkeypatch):
     monkeypatch.setattr(loop, "apply_update", lambda *args, **kwargs: None)
 
 
-def test_sound_offline_run_is_correct():
-    assert execute("nmp.offline-mixed")["correct"] is True
-
-
-def test_sound_train_run_is_correct():
-    assert execute("train.b16-highest", seconds=1.0)["correct"] is True
-
-
-def test_sound_serve_run_is_correct():
-    assert execute("nmp.serve-poisson", seconds=3.0)["correct"] is True
+@pytest.mark.parametrize("workload", CELLS)
+def test_sound_run_is_correct(workload):
+    assert execute(workload)["correct"] is True
 
 
 @pytest.mark.parametrize(

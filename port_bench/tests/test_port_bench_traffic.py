@@ -10,6 +10,8 @@ from pb import bench, traffic
 
 MIXES = {p.stem: json.loads(p.read_text()) for p in (bench.BENCH_DIR / "traffic").glob("*.json")}
 SEED = 2**31 + 12345
+# the mixes of recordings, whatever kind runs them
+RECORDING_MIXES = sorted(n for n, s in MIXES.items() if "durations" in s)
 
 
 def small(spec):
@@ -18,7 +20,7 @@ def small(spec):
     return spec
 
 
-@pytest.mark.parametrize("name", sorted(n for n, s in MIXES.items() if s["kind"] != "train"))
+@pytest.mark.parametrize("name", RECORDING_MIXES)
 def test_recordings_are_seeded(name):
     spec = small(MIXES[name])
     spec["durations"] = {"dist": "loguniform", "min_s": 0.5, "max_s": 2} if spec["durations"]["dist"] != "fixed" else {"dist": "fixed", "seconds": 1}
@@ -32,7 +34,7 @@ def test_recordings_are_seeded(name):
         assert x.dtype == np.int16 and len(x) == p["samples"]
 
 
-@pytest.mark.parametrize("name", sorted(n for n, s in MIXES.items() if s["kind"] != "train"))
+@pytest.mark.parametrize("name", RECORDING_MIXES)
 def test_durations_and_voices_keep_to_the_mix(name):
     spec = MIXES[name]
     plan = traffic.recording_plan(spec)
