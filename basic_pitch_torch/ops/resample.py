@@ -76,3 +76,53 @@ def decimate2(
     z = F.pad(x, (pad_left, max(0, z_len - pad_left - length)))[:, :z_len]
     y = cqt.strided_blocked_matmul(z, matrix, 2, n_blocks)[:, :n_out]
     return y[0] if squeeze else y
+
+
+# ---------------------------------------------------------------------------
+# 44.1 kHz -> 16 kHz (160/441), MT3's input rate
+# ---------------------------------------------------------------------------
+
+POLY_UP, POLY_DOWN = 160, 441
+POLY_HALF = 10 * POLY_DOWN  # scipy's filter half length for these rates
+POLY_HALO = -(-POLY_HALF // POLY_UP)  # 28 inputs a block reads on each side
+POLY_SPAN = POLY_DOWN + 2 * POLY_HALO  # 497 inputs per block of 160 outputs
+POLY_KAISER_BETA = 5.0  # resample_poly's default window
+
+
+@functools.lru_cache(maxsize=None)
+def poly_taps() -> np.ndarray:
+    """resample_poly's 8 821-tap Kaiser lowpass for 160/441, gain 160."""
+    from scipy.signal import firwin
+
+    return firwin(2 * POLY_HALF + 1, 1.0 / POLY_DOWN, window=("kaiser", POLY_KAISER_BETA)) * POLY_UP
+
+
+@functools.lru_cache(maxsize=None)
+def poly_matrix() -> np.ndarray:
+    """(497, 160) polyphase block: output 160 b + t = sum_m x[441 b - 28 + m]
+    W[m, t], W[m, t] = h[441 t - 160 (m - 28) + 4410] (zero outside the taps)."""
+    h = poly_taps()
+    idx = POLY_DOWN * np.arange(POLY_UP)[None, :] - POLY_UP * (np.arange(POLY_SPAN)[:, None] - POLY_HALO) + POLY_HALF
+    valid = (idx >= 0) & (idx < len(h))
+    w = np.zeros(idx.shape, np.float64)
+    w[valid] = h[idx[valid]]
+    return w.astype(np.float32)
+
+
+def poly_output_length(n: int) -> int:
+    """resample_poly's output length for 160/441: ceil(160 n / 441)."""
+    return -(-n * POLY_UP // POLY_DOWN)
+
+
+def resample_160_441(x: torch.Tensor, n_blocks: int, matrix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """44.1 kHz -> 16 kHz as one block matmul, ``scipy.signal.resample_poly(x,
+    160, 441)``'s arithmetic. ``x`` holds input samples 441 b0 - 28 ..
+    441 (b0 + n_blocks) + 28 of a recording (zeros outside it); returns its
+    outputs 160 b0 .. 160 (b0 + n_blocks) - 1. ``matrix`` is `poly_matrix()`
+    on ``x``'s device (copied there when not given)."""
+    if matrix is None:
+        matrix = torch.from_numpy(poly_matrix()).to(x.device)
+    need = POLY_DOWN * n_blocks + 2 * POLY_HALO
+    if x.shape[-1] < need:
+        raise ValueError(f"{n_blocks} blocks need {need} input samples, got {x.shape[-1]}")
+    return (x.unfold(-1, POLY_SPAN, POLY_DOWN)[:n_blocks] @ matrix).reshape(-1)

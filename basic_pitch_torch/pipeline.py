@@ -61,7 +61,6 @@ more than one recording.
 
 from __future__ import annotations
 
-import concurrent.futures
 import pathlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -78,6 +77,7 @@ from basic_pitch_torch.models import params as params_io
 from basic_pitch_torch.ops import pcmcodec
 from basic_pitch_torch.ops import resample as resample_ops
 from basic_pitch_torch.ops import transport
+from basic_pitch_torch.ops import upload as upload_ops
 from basic_pitch_torch.parallel import mesh as mesh_lib
 from basic_pitch_torch.utils import audio as audio_io
 from basic_pitch_torch.utils import profiling
@@ -96,29 +96,11 @@ def unfold_windows(piece: torch.Tensor, w: int) -> torch.Tensor:
     return piece.unfold(0, WINDOW, HOP)[:w]
 
 
-def _pack_wire(piece: np.ndarray) -> "Tuple[pcmcodec.PackedPCM, Tuple[np.ndarray, pcmcodec.WireLayout]]":
-    """Pack one int16 piece and lay out its wire (on a packer thread)."""
-    packed = pcmcodec.pack(piece)
-    return packed, pcmcodec.to_wire(packed)
-
-
 def _needed_windows(n_samples: int, is_44k: bool) -> int:
     """Model windows a recording of ``n_samples`` covers (the windows its
     outputs need, before any padding to whole W-window chunks)."""
     length = resample_ops.decimate2_output_length(n_samples) if is_44k else n_samples
     return max(1, -(-(length + OVERLAP // 2) // HOP))
-
-
-def _padded_slice(x: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    """x[lo:hi] with zero padding for out-of-range indices (a view when
-    the slice is interior)."""
-    if 0 <= lo and hi <= len(x):
-        return x[lo:hi]
-    out = np.zeros(hi - lo, dtype=x.dtype)
-    src_lo, src_hi = max(lo, 0), min(hi, len(x))
-    if src_hi > src_lo:
-        out[src_lo - lo : src_hi - lo] = x[src_lo:src_hi]
-    return out
 
 
 class DecodeOptions(NamedTuple):
@@ -262,28 +244,18 @@ class StreamingTranscriber:
         on_gpu = self.device.type == "cuda"
         self.decode_backend = "kernel" if on_gpu else "plain"
         self.host_fallbacks = 0
-        self.piece_upload_bytes: Dict[str, int] = {}
-        # threads of the native packer (ctypes releases the GIL), made at
-        # the first codec dispatch
-        self._pack_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         dec2 = torch.from_numpy(resample_ops.decimate2_matrix())
         self._dec2 = {dev: dec2.to(dev) for dev in distinct}
         # one pinned host buffer for uploads, copied on a side stream of its
-        # device so the next piece's upload overlaps the current compute
-        self._pinned: Optional[torch.Tensor] = None
-        self._upload_done: Optional[torch.cuda.Event] = None
-        self._copy_streams = {dev: torch.cuda.Stream(dev) for dev in distinct if dev.type == "cuda"}
+        # device so the next piece's upload overlaps the current compute,
+        # and the packer's threads, made at the first codec dispatch
+        self._uploader = upload_ops.PieceUploader(distinct)
+        self.piece_upload_bytes: Dict[str, int] = self._uploader.piece_upload_bytes
 
     def close(self) -> None:
         """Release the pinned upload buffer and the packer threads
         (idempotent; a later dispatch makes them again)."""
-        if self._upload_done is not None:
-            self._upload_done.synchronize()
-        self._pinned = None
-        self._upload_done = None
-        if self._pack_pool is not None:
-            self._pack_pool.shutdown(wait=True)
-            self._pack_pool = None
+        self._uploader.close()
 
     def __enter__(self) -> "StreamingTranscriber":
         return self
@@ -321,8 +293,8 @@ class StreamingTranscriber:
         span = n * HOP + OVERLAP
         if is_44k:
             lo = 2 * lo - _DEC_HALO
-            return _padded_slice(audio, lo, lo + 2 * span + 2 * _DEC_HALO)
-        return _padded_slice(audio, lo, lo + span)
+            return upload_ops.padded_slice(audio, lo, lo + 2 * span + 2 * _DEC_HALO)
+        return upload_ops.padded_slice(audio, lo, lo + span)
 
     def _pieces(self, audio: np.ndarray, is_44k: bool, n_chunks: int):
         """Host-side whole chunks of a recording, each a list of rows: row r
@@ -331,39 +303,12 @@ class StreamingTranscriber:
         for c in range(n_chunks):
             yield [self._row(audio, is_44k, c * self.w + r * self.w_local, self.w_local) for r in range(self.n_shards)]
 
-    def _upload(self, piece: np.ndarray, device: torch.device) -> torch.Tensor:
-        """Ship one host array (a float32 or int16 row, or a codec wire of
-        uint8) to ``device`` through the pinned buffer; the buffer is
-        rewritten only after the previous copy from it has landed."""
-        if device.type == "cpu":
-            return torch.from_numpy(np.array(piece))
-        dtype = torch.from_numpy(piece[:0]).dtype
-        if self._upload_done is not None:
-            self._upload_done.synchronize()  # the pinned buffer is free again
-        if self._pinned is None or self._pinned.numel() < piece.nbytes:
-            self._pinned = torch.empty(piece.nbytes, dtype=torch.uint8, pin_memory=True)
-        host = self._pinned[: piece.nbytes].view(dtype)
-        host.numpy()[:] = piece
-        compute = torch.cuda.current_stream(device)
-        copy_stream = self._copy_streams[device]
-        with torch.cuda.stream(copy_stream):
-            dev = host.to(device, non_blocking=True)
-            self._upload_done = torch.cuda.Event()
-            self._upload_done.record(copy_stream)
-        compute.wait_event(self._upload_done)
-        dev.record_stream(compute)
-        return dev
-
     def _codec_enabled(self, dtype: np.dtype, device: Optional[torch.device] = None) -> bool:
         """Should this recording's int16 rows for ``device`` (devices[0] when
         None) ride the codec? "codec" and "raw" are unconditional; "auto"
         follows the cached probe of that device and never starts a
         measurement (`refresh_transport` does)."""
-        if dtype != np.int16 or self.pcm_transport == "raw":
-            return False
-        if self.pcm_transport == "codec":
-            return True
-        return transport.resolve("auto", device=self.device if device is None else device) == "codec"
+        return upload_ops.use_codec(self.pcm_transport, dtype, self.device if device is None else device)
 
     def refresh_transport(self, wait: bool = False) -> None:
         """With "auto", re-probe the link when the cached probe is older than
@@ -374,13 +319,6 @@ class StreamingTranscriber:
             for dev in mesh_lib.distinct(self.devices):
                 transport.probe(dev, ttl_s=self.transport_ttl_s, wait=wait)
 
-    def _packer_threads(self) -> concurrent.futures.ThreadPoolExecutor:
-        if self._pack_pool is None:
-            self._pack_pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=transport.PACK_WORKERS, thread_name_prefix="bp-pack"
-            )
-        return self._pack_pool
-
     def _upload_piece(
         self,
         piece: np.ndarray,
@@ -388,18 +326,9 @@ class StreamingTranscriber:
         device: torch.device,
         key: str,
     ) -> torch.Tensor:
-        """One row on ``device`` as float32 samples, counting the bytes that
-        crossed under ``key``: the codec's packed bytes where they are fewer
-        than the raw row's (one `pcm_decode` launch on that device), else the
-        raw row."""
-        if packed is not None and packed[0].packed_bytes < piece.nbytes:
-            pk, (wire, layout) = packed
-            self.piece_upload_bytes[key] = self.piece_upload_bytes.get(key, 0) + pk.packed_bytes
-            return pcmcodec.decode_wire(self._upload(wire, device), layout, len(piece))
-        # an incompressible piece goes raw: strictly fewer bytes (JAX's rule)
-        self.piece_upload_bytes[key] = self.piece_upload_bytes.get(key, 0) + piece.nbytes
-        x = self._upload(piece, device)
-        return x.to(torch.float32) * (1.0 / 32768.0) if x.dtype == torch.int16 else x
+        """One row on ``device`` as float32 samples, raw or through the codec,
+        its bytes counted under ``key`` (`upload.PieceUploader.upload_piece`)."""
+        return self._uploader.upload_piece(piece, packed, device, key)
 
     def _windows(self, x: torch.Tensor, is_44k: bool, n: int, dev: torch.device) -> torch.Tensor:
         """The (n, 43 844) windows of one uploaded row of n windows (`_row`),
@@ -474,8 +403,8 @@ class StreamingTranscriber:
                 sizes = [min(w, n - c * w) for c in range(n_chunks)]
                 rows = [self._row(audio, is_44k, c * w, m) for c, m in enumerate(sizes)]
                 # pack on worker threads: piece c+1 packs while piece c uploads
-                pool = self._packer_threads() if self._codec_enabled(audio.dtype) else None
-                packed = [None if pool is None else pool.submit(_pack_wire, row) for row in rows]
+                pool = self._uploader.packer_threads() if self._codec_enabled(audio.dtype) else None
+                packed = [None if pool is None else pool.submit(upload_ops.pack_wire, row) for row in rows]
                 for row, future, m in zip(rows, packed, sizes):
                     with profiling.span("bp.transcriber.upload"):
                         x = self._upload_piece(row, None if future is None else future.result(), self.device, "default")
@@ -518,8 +447,8 @@ class StreamingTranscriber:
             pieces = list(self._pieces(audio, is_44k, n_chunks))
             codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
             # pack on worker threads: piece c+1 packs while piece c uploads
-            pool = self._packer_threads() if any(codec) else None
-            packed = [[pool.submit(_pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
+            pool = self._uploader.packer_threads() if any(codec) else None
+            packed = [[pool.submit(upload_ops.pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
             chunks = []
             for rows, futures in zip(pieces, packed):
                 with profiling.span("bp.transcriber.upload"):

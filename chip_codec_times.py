@@ -97,6 +97,7 @@ def main() -> int:
         return 1
     from basic_pitch_torch import pipeline
     from basic_pitch_torch.ops import pcmcodec
+    from basic_pitch_torch.ops import upload as upload_ops
 
     cs = _smoke()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -106,7 +107,7 @@ def main() -> int:
     pcm10 = np.round(cs.tone_mix(cs.SR, 600.0, seed=103)[0] * 32767).astype(np.int16)
     chunk_len = 128 * pipeline.HOP + pipeline.OVERLAP
     last_lo = 2 * 128 * pipeline.HOP - pipeline.OVERLAP // 2
-    piece = pipeline._padded_slice(pcm10, last_lo, last_lo + chunk_len)
+    piece = upload_ops.padded_slice(pcm10, last_lo, last_lo + chunk_len)
     exact = torch.from_numpy(piece.astype(np.float32) / np.float32(32768.0)).to(dev)
     pieces = {}
     for name, mode in (("path", None), ("path_lpc", "lpc")):

@@ -136,10 +136,26 @@ Phases, each fatal on failure:
      records, each bit-equal to the numpy path, with MB/s of both beside
      the card's name and power limit and the host CPU; a call that took
      the numpy path fails the phase;
-  10. a JSON line listing every hand kernel (greedy_decode, pcm_decode) with
-     its launches on the paths driven (their sum, the split beside it), its
-     error against the plain version and its times;
-  11. as the last line, {"ok": true, "device": {...}}.
+  10. MT3 at its published widths (seeded weights): one `transcribe_batch`
+     call of 8 x 60 s 44.1 kHz int16 tone mixes of 12-16 voices (240
+     segments, one decode batch) with codec token budgets (the reference's
+     encoder of each segment's notes into tokens), once to capture the
+     step's graphs and once under a `torch.profiler` trace (written under
+     basic_pitch_torch/build/); every segment must emit its budget, and the
+     trace must hold 16 `_mt3_cache_attention` launches per decode step
+     (8 layers x self and cross; the counts come from the trace, since
+     graph replays pass no wrapper), with their device time against the
+     bytes the launches read at 3.35 TB/s. Then the kernel on that call's
+     own caches, every layer's self view at lengths 1, 64, the median and
+     the largest budget and its cross view at 256 frames, against the
+     float64 plain version within 2e-6 of each case's largest output, and
+     timed per launch (a CUDA graph over the 8 layers' views) beside its
+     bytes bound, the plain version and `scaled_dot_product_attention`;
+  11. a JSON line listing every hand kernel (greedy_decode, pcm_decode,
+     _mt3_cache_attention) with its launches on the paths driven (their
+     sum, the split beside it), its error against the plain version and its
+     times;
+  12. as the last line, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -1654,7 +1670,7 @@ def measure_corpus(root: pathlib.Path, n_tracks: int, seconds: float) -> List[Tu
 def trace_summary(path: pathlib.Path, region: str) -> dict:
     """What a `profiling.trace` file says about the span ``region``:
     the window (the region's host span), the CUDA kernels in it, their
-    device time (ms by name), the device's busy share (the union of kernel intervals
+    device time (ms by name) and launches (by name), the device's busy share (the union of kernel intervals
     over the window) and the top 5 kernels by device time with their share
     of all kernel time. Fails when the trace holds no CUDA kernel."""
     events = json.loads(path.read_text())["traceEvents"]
@@ -1684,6 +1700,7 @@ def trace_summary(path: pathlib.Path, region: str) -> dict:
         "kernel_ms": kernel_us / 1e3,
         "busy_share": busy_us / (hi - lo),
         "by_name": {name: t / 1e3 for name, (t, _) in by_name.items()},
+        "calls": {name: n for name, (_, n) in by_name.items()},
         "top": [(name, t / 1e3, t / kernel_us, n) for name, (t, n) in top],
     }
 
@@ -1701,6 +1718,7 @@ def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
     from basic_pitch_torch.data import serialization, tfrecord
     from basic_pitch_torch.decode import greedy_kernel
     from basic_pitch_torch.ops import pcmcodec
+    from basic_pitch_torch.ops import upload as upload_ops
     from basic_pitch_torch.utils import flops, profiling
 
     print(f"data phase on {smi}")
@@ -1800,7 +1818,7 @@ def data_phase(smi: str) -> Tuple[dict, List[bytes]]:
     for precision, conv_impl in (("highest", "conv"), ("highest", "toeplitz:24"), ("high", "conv")):
         tr = pipeline.StreamingTranscriber(device="cuda", windows_per_chunk=128, precision=precision,
                                            conv_impl=conv_impl, pcm_transport="raw")
-        piece = torch.from_numpy(pipeline._padded_slice(long_audio, 0, tr.chunk_len)).to("cuda")
+        piece = torch.from_numpy(upload_ops.padded_slice(long_audio, 0, tr.chunk_len)).to("cuda")
         windows = pipeline.unfold_windows(piece, tr.w)
 
         def model_only() -> None:
@@ -2154,6 +2172,152 @@ def native_phase(smi: str, records: List[bytes]) -> None:
     print(f"native calls this process: {json.dumps(native.calls)}")
 
 
+MT3_RECORDINGS = 8  # one call of 60 s recordings: 240 segments, one decode batch
+MT3_REL = 2e-6  # cache attention, float32 against float64, of each case's largest output
+
+
+def mt3_token_budgets(notes: List[tuple], n_segments: int, cfg: Any, cap: int = 1024) -> List[int]:
+    """Each segment's count of MT3 codec tokens (the reference's encoder of
+    notes into tokens) for (onset s, offset s, pitch) notes as program 0,
+    ties included, capped."""
+    import mt3_reference as R
+
+    full = [(on, off, pitch, 127, 0, False) for on, off, pitch in notes]
+    by_segment: dict = {}
+    for note in full:
+        for k in range(R.segment_of(note[0], cfg), min(R.segment_of(note[1], cfg), n_segments - 1) + 1):
+            by_segment.setdefault(k, []).append(note)
+    return [min(cap, len(R.notes_to_tokens(by_segment.get(k, []), k, cfg))) for k in range(n_segments)]
+
+
+def mt3_phase(smi: str) -> dict:
+    """MT3 at its published widths on the card (see the module docstring,
+    phase 10). Returns the kernels entry of `_mt3_cache_attention`."""
+    import torch
+    import torch.nn.functional as F
+
+    import mt3_reference as R
+    from basic_pitch_torch.models import mt3
+    from basic_pitch_torch.mt3_pipeline import Mt3Transcriber
+    from basic_pitch_torch.ops import cache_attention as cache_ops
+    from basic_pitch_torch.utils import profiling
+
+    print(f"MT3 phase on {smi}")
+    t_phase = time.perf_counter()
+    cfg = R.Config()
+    tr = Mt3Transcriber(1717, device="cuda", segments_per_call=256)
+    recordings, budgets = [], []
+    for i in range(MT3_RECORDINGS):
+        audio, notes = tone_mix(44100, 60.0, seed=170 + i, voices=12 + i % 5, offsets=True)
+        recordings.append((np.round(np.clip(audio, -1.0, 1.0) * 32767).astype(np.int16), 44100))
+        budgets.append(mt3_token_budgets(notes, tr.n_segments(len(audio), 44100), cfg))
+    flat = sorted((b for bs in budgets for b in bs), reverse=True)
+    t0 = time.perf_counter()
+    tr.transcribe_batch(recordings, token_budgets=budgets)  # captures the step's graphs
+    torch.cuda.synchronize()
+    print(f"MT3 first call (graph capture included): {time.perf_counter() - t0:.2f} s; {len(flat)} segments, "
+          f"token budgets median {np.median(flat):.0f}, largest {flat[0]}, {sum(flat)} tokens")
+    trace_dir = REPO / "basic_pitch_torch" / "build" / "mt3_trace"
+    region = "smoke.mt3.transcribe_batch"
+    before = cache_ops.LAUNCHES
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.span(region):
+            got = tr.transcribe_batch(recordings, token_budgets=budgets, return_model_outputs=True)
+        torch.cuda.synchronize()
+        counters = profiling.summary()["counters"]
+    traced_s = time.perf_counter() - t0
+    wrapper_launches = cache_ops.LAUNCHES - before
+    emitted = [len(t) for _, out in got for t in out["tokens"]]
+    if emitted != [b for bs in budgets for b in bs]:
+        raise AssertionError("MT3 emitted other token counts than its budgets")
+    summary = trace_summary(trace_dir / profiling.TRACE_NAME, region)
+    names = [k for k in summary["calls"] if "_mt3_cache_attention" in k]
+    launches = sum(summary["calls"][k] for k in names)
+    device_ms = sum(summary["by_name"][k] for k in names)
+    steps = int(counters["mt3.decode_steps"])
+    per_step = 2 * cfg.n_dec_layers  # self and cross attention in every layer
+    if launches != per_step * steps:
+        raise AssertionError(f"the trace holds {launches} _mt3_cache_attention launches for {steps} decode steps")
+    # the bytes the launches read: each step's rows (its bucket) over the
+    # self cache at the step's length and the cross cache
+    st = tr.model._state
+    row_bytes = 2 * cfg.n_heads * cfg.d_head * 4
+    neg = [-c for c in flat]
+    run_bytes = 0
+    for t in range(steps):
+        live = int(np.searchsorted(neg, -t, side="left"))
+        n = min(st["rows"], -(-live // mt3.ROW_BUCKET) * mt3.ROW_BUCKET)
+        run_bytes += cfg.n_dec_layers * n * row_bytes * ((t + 1) + cfg.frames)
+    run_bound_ms = run_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"MT3 traced call [{smi}]: host wall {traced_s * 1e3:.1f} ms with the profiler on, window "
+          f"{summary['window_ms']:.2f} ms, device busy share {100 * summary['busy_share']:.1f}%; {steps} decode steps, "
+          f"{int(counters['mt3.token_rows_run'])} token rows run, {int(counters['mt3.tokens_emitted'])} tokens, {sum(len(e) for e, _ in got)} events; "
+          f"_mt3_cache_attention {launches} launches in the trace ({per_step} a step; the wrapper counted "
+          f"{wrapper_launches}: graph replays pass no wrapper), {device_ms:.3f} ms of device time, "
+          f"{device_ms / launches * 1e3:.2f} us a launch; bytes bound {run_bound_ms:.3f} ms "
+          f"({run_bytes} B / {HBM_BYTES_PER_S:.3g} B/s): {100 * run_bound_ms / device_ms:.1f}% of it reached")
+    top = "; ".join(f"{k[:80]} {ms:.3f} ms ({100 * share:.1f}%, x{n})" for k, ms, share, n in summary["top"])
+    print(f"MT3 top 5 CUDA kernels by device time [{smi}]: {top}")
+
+    # the kernel on this call's own caches: every layer's views, as the step passes them
+    rows = len(flat)
+    layers = range(cfg.n_dec_layers)
+    lengths = sorted({1, 64, int(np.median(flat)), flat[0]})
+    cases = [("self", L, [(st["cache"][i, 0, :rows], st["cache"][i, 1, :rows]) for i in layers]) for L in lengths]
+    cases.append(("cross", cfg.frames, [(st["cross"][i, 0, :rows], st["cross"][i, 1, :rows]) for i in layers]))
+    rows_out = []
+    worst = 0.0
+    for kind, L, views in cases:
+        length = torch.tensor([L], device="cuda")
+        # queries of the size the step's are: a key of the cache over sqrt(d_head)
+        qs = [(k[:, :, L - 1] / cfg.d_head ** 0.5).contiguous() for k, _ in views]
+        for q, (k, v) in zip(qs, views):
+            got_o = cache_ops.cache_attention(q, k, v, length).double()
+            want = cache_ops.cache_attention_plain(q.double(), k.double(), v.double(), length)
+            rel = float((got_o - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+            if rel > MT3_REL:
+                raise AssertionError(f"_mt3_cache_attention {kind} L={L}: {rel:.3g} of the largest output, over {MT3_REL}")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for q, (k, v) in zip(qs, views):
+                cache_ops.cache_attention(q, k, v, length)
+        ms = cuda_ms(graph.replay, 25) / len(views)
+        plain_ms = cuda_ms(lambda: [cache_ops.cache_attention_plain(q, k, v, length) for q, (k, v) in zip(qs, views)], 5) / len(views)
+        sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(q[:, :, None], k[:, :, :L], v[:, :, :L], scale=1.0)
+                                   for q, (k, v) in zip(qs, views)], 5) / len(views)
+        bound_ms = rows * row_bytes * L / HBM_BYTES_PER_S * 1e3
+        rows_out.append({"case": kind, "rows": rows, "length": L, "ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                         "bound_ms": bound_ms})
+        print(f"_mt3_cache_attention {kind} {rows} rows x {cfg.n_heads} heads at length {L} [{smi}]: {ms:.4f} ms a launch "
+              f"(CUDA graph of the 8 layers' views, 25 replays), bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%), "
+              f"plain {plain_ms:.4f} ms, SDPA(scale=1) {sdpa_ms:.4f} ms")
+    del graph
+    print(f"_mt3_cache_attention against the float64 plain version on the call's caches: worst {worst:.3g} of a "
+          f"case's largest output (limit {MT3_REL})")
+    tr.close()
+    print(f"MT3 phase took {time.perf_counter() - t_phase:.1f} s")
+    longest = next(r for r in rows_out if r["case"] == "self" and r["length"] == flat[0])
+    return {
+        "name": "_mt3_cache_attention",
+        "route": "triton",
+        "source": "basic_pitch_torch/ops/cache_attention.py",
+        # no Pallas kernel: the JAX package runs no seq2seq model
+        "replaces": None,
+        "launches": launches,
+        "launches_by_path": {"mt3": launches},
+        "max_rel_err": worst,
+        "ms": longest["ms"],
+        "plain_ms": longest["plain_ms"],
+        "bound_ms": longest["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": longest["library_ms"],
+        "cases": rows_out,
+        "traced_call": {"launches": launches, "device_ms": device_ms, "bound_ms": run_bound_ms, "decode_steps": steps},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2463,7 +2627,10 @@ def main() -> int:
     print(f"greedy_decode launches by path: {json.dumps(by_path)}")
     print(f"pcm_decode launches by path: {json.dumps(codec_by_path)}")
 
-    # ---------------- phase 10: kernels ----------------
+    # ---------------- phase 10: MT3 ----------------
+    mt3_kernel = mt3_phase(smi)
+
+    # ---------------- phase 11: kernels ----------------
     kernels = [{
         "name": "greedy_decode",
         "route": "cuda",
@@ -2492,10 +2659,10 @@ def main() -> int:
         "bound_ms": codec_row["bound_ms"],
         "bound_by": codec_row["bound_by"],
         "library_ms": None,
-    }]
+    }, mt3_kernel]
     print(json.dumps({"kernels": kernels}))
 
-    # ---------------- phase 11: result ----------------
+    # ---------------- phase 12: result ----------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
