@@ -19,6 +19,7 @@ decoder; `tests/test_torch_decode.py` fuzzes this against it.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -381,46 +382,83 @@ def gather_note_bends(bends_all: torch.Tensor, decoded: DecodedNotes) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def _host_fields(decoded: DecodedNotes) -> Tuple[list, list, list, list]:
+def notes_to_events(
+    decoded: DecodedNotes,
+    times: np.ndarray,
+    bends_inline: Optional[np.ndarray] = None,
+    bends_all_device: Optional[torch.Tensor] = None,
+) -> "list[tuple]":
+    """Host-side buffers -> second-domain events (start_s, end_s, pitch,
+    amplitude, bends), built with whole-array operations and one `tolist`
+    per field rather than Python work per note or frame.
+
+    `times` maps frames to seconds (`notes.model_frames_to_time`); an end
+    past the last frame takes the last frame's time. `bends_inline` None
+    gives bends None. Otherwise each note's bends (Python ints) are its
+    frames of the compact per-note buffer, or, for a note longer than
+    BEND_INLINE_FRAMES, its slice of its pitch's column of the
+    device-resident matrix, fetched in one gather of those columns.
+
+    The tuples and bend lists are made by `zip` and `map` inside one
+    `list` call, not by a comprehension: CPython's cyclic collector runs
+    only between bytecodes, so a recording's thousands of new objects meet
+    one young collection instead of one every 700 objects, and far fewer
+    of them are promoted towards the full collections that walk the whole
+    heap.
+    """
     n = int(decoded.n_notes)
-    return (
-        decoded.starts[:n].tolist(),
-        decoded.ends[:n].tolist(),
-        decoded.pitches[:n].tolist(),
+    starts = decoded.starts[:n].numpy()
+    ends = decoded.ends[:n].numpy()
+    pitches = decoded.pitches[:n].numpy()
+    fields = (
+        times[starts].tolist(),
+        times[np.minimum(ends, len(times) - 1)].tolist(),
+        pitches.tolist(),
         decoded.amplitudes[:n].double().tolist(),
     )
+    profiling.count("transcriber.notes_assembled", n)
+    if bends_inline is None:
+        profiling.count("transcriber.bend_frames_assembled", 0)
+        profiling.count("transcriber.long_note_columns", 0)
+        return list(zip(*fields, itertools.repeat(None, n)))
+    lengths = ends - starts
+    long_notes = np.flatnonzero(lengths > BEND_INLINE_FRAMES)
+    inline_lengths = lengths.copy()
+    inline_lengths[long_notes] = 0
+    # the short notes' frames, in note order
+    flat = bends_inline[:n][np.arange(BEND_INLINE_FRAMES, dtype=lengths.dtype) < inline_lengths[:, None]]
+    if long_notes.size:
+        flat = _splice_long_bends(flat, lengths, long_notes, starts, pitches, bends_all_device)
+    profiling.count("transcriber.bend_frames_assembled", len(flat))
+    profiling.count("transcriber.long_note_columns", long_notes.size)
+    bends = flat.tolist()
+    offsets = np.concatenate(([0], np.cumsum(lengths))).tolist()
+    per_note = map(bends.__getitem__, map(slice, offsets[:-1], offsets[1:]))
+    return list(zip(*fields, per_note))
 
 
-def notes_to_events(decoded: DecodedNotes) -> "list[tuple]":
-    """Host-side buffers -> frame-domain event tuples (s, e, pitch, amp,
-    None), for a decode without pitch bends."""
-    starts, ends, pitches, amps = _host_fields(decoded)
-    return [(s, e, p, a, None) for s, e, p, a in zip(starts, ends, pitches, amps)]
-
-
-def notes_to_events_packed(
-    decoded: DecodedNotes,
-    bends_inline: np.ndarray,
+def _splice_long_bends(
+    short_flat: np.ndarray,
+    lengths: np.ndarray,
+    long_notes: np.ndarray,
+    starts: np.ndarray,
+    pitches: np.ndarray,
     bends_all_device: torch.Tensor,
-) -> "list[tuple]":
-    """Like `notes_to_events` but from the compact per-note bend buffer;
-    notes longer than BEND_INLINE_FRAMES fetch their full bend column from
-    the device-resident matrix in one gather."""
-    starts, ends, pitches, amps = _host_fields(decoded)
-    inline64 = bends_inline[: len(starts)].astype(np.int64)
-    long_cols = {}
-    long_idx = [i for i, (s, e) in enumerate(zip(starts, ends)) if e - s > BEND_INLINE_FRAMES]
-    if long_idx:
-        cols = np.unique([pitches[i] - host_decode.MIDI_PITCH_OFFSET for i in long_idx])
-        index = torch.from_numpy(cols).long().to(bends_all_device.device)
-        with profiling.span("bp.transcriber.fetch"):
-            fetched = bends_all_device[:, index].cpu().numpy().astype(np.int64)
-        long_cols = {int(c): fetched[:, j] for j, c in enumerate(cols)}
-    events = []
-    for i, (s, e, p, a) in enumerate(zip(starts, ends, pitches, amps)):
-        if e - s <= BEND_INLINE_FRAMES:
-            bend = list(inline64[i, : e - s])
-        else:
-            bend = list(long_cols[p - host_decode.MIDI_PITCH_OFFSET][s:e])
-        events.append((s, e, p, a, bend))
-    return events
+) -> np.ndarray:
+    """Every note's bend frames in note order: the short notes' from
+    `short_flat`, each long note's `[start, end)` slice of its pitch column,
+    from one device gather of the long notes' distinct columns."""
+    cols, col_of = np.unique(pitches[long_notes] - host_decode.MIDI_PITCH_OFFSET, return_inverse=True)
+    index = torch.from_numpy(cols).long().to(bends_all_device.device)
+    with profiling.span("bp.transcriber.fetch"):
+        fetched = bends_all_device[:, index].cpu().numpy()
+    is_long = np.zeros(len(lengths), bool)
+    is_long[long_notes] = True
+    in_long = np.repeat(is_long, lengths)
+    flat = np.empty(len(in_long), short_flat.dtype)
+    flat[~in_long] = short_flat
+    long_lengths = lengths[long_notes]
+    note = np.repeat(np.arange(len(long_notes)), long_lengths)
+    step = np.arange(len(note)) - np.repeat(np.cumsum(long_lengths) - long_lengths, long_lengths)
+    flat[in_long] = fetched[starts[long_notes][note] + step, col_of[note]]
+    return flat

@@ -24,7 +24,8 @@ F) outputs; then, once per recording, as soon as its last window has run,
 the greedy note decode (the CUDA kernel of `decode/greedy_kernel.py` on a
 GPU, its plain version on the CPU) and the per-note bend gather. Only the
 note count, then count-sized note buffers, cross back to the host, where
-events are assembled.
+each recording's events are assembled in one vectorised pass
+(`decode/device.notes_to_events`).
 
 Over a list of several devices (``devices=``, JAX's ``mesh=``; a list of
 one is one device), each recording runs
@@ -56,7 +57,10 @@ recordings belongs to the forward open when it runs), ``bp.decode.dispatch``,
 counters ``transcriber.windows_needed`` / ``windows_run``, the windows the
 audio covers and those the model ran (whole W-window chunks), and, on one
 device, ``transcriber.chunks_shared``, the chunks run that held windows of
-more than one recording.
+more than one recording; per recording decoded on the device, the
+assembly's ``transcriber.notes_assembled``, ``bend_frames_assembled`` and
+``long_note_columns`` (its events, their bend frames, and its notes longer
+than the inline bend buffer).
 """
 
 from __future__ import annotations
@@ -618,16 +622,15 @@ class StreamingTranscriber:
                     events_f = host_decode.extract_pitch_bends(model_output["contour"], frame_notes)
                 else:
                     events_f = [(s, e, p, a, None) for s, e, p, a in frame_notes]
-            elif opts.include_pitch_bends:
-                events_f = device_decode.notes_to_events_packed(decoded, bends_inline, ticket["bends_all_dev"])
+                times = host_decode.model_frames_to_time(n_frames)
+                events = [
+                    (float(times[s]), float(times[min(e, n_frames - 1)]), p, a, b)
+                    for s, e, p, a, b in events_f
+                ]
             else:
-                events_f = device_decode.notes_to_events(decoded)
-
-            times = host_decode.model_frames_to_time(n_frames)
-            events = [
-                (float(times[s]), float(times[min(e, n_frames - 1)]), p, a, b)
-                for s, e, p, a, b in events_f
-            ]
+                events = device_decode.notes_to_events(
+                    decoded, host_decode.model_frames_to_time(n_frames), bends_inline, ticket["bends_all_dev"]
+                )
             if ticket["keep_outputs"]:
                 return events, model_output
             return events

@@ -238,9 +238,14 @@ def test_traced_transcribe_batch_gives_the_span_tree_per_recording():
         assert all(np.array_equal(g[1][k], x[1][k]) for k in x[1])
     summary = profiling.summary()
     # packed: a's three windows and b's one fill two shared chunks, the
-    # second holding windows of both
+    # second holding windows of both; the assembly counts each recording's
+    # events and their bend frames
+    events = [e for g in got for e in g[0]]
     assert summary["counters"] == {
-        "transcriber.windows_needed": 4, "transcriber.windows_run": 2 * w, "transcriber.chunks_shared": 1}
+        "transcriber.windows_needed": 4, "transcriber.windows_run": 2 * w, "transcriber.chunks_shared": 1,
+        "transcriber.notes_assembled": len(events),
+        "transcriber.bend_frames_assembled": sum(len(e[4]) for e in events),
+        "transcriber.long_note_columns": 0}
     spans = profiling.spans()
     by_id, children = _tree(spans)
     (batch,) = profiling.spans("bp.transcriber.batch")
