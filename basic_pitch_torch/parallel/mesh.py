@@ -3,8 +3,8 @@
 PyTorch counterpart of `basic_pitch_tpu/parallel/mesh.py`. The model is
 under 1M parameters, so the parallel axes that pay are data parallelism
 (training batches, `parallel/distributed.py`) and window parallelism
-(inference: `pipeline.StreamingTranscriber(devices=...)` cuts each chunk's
-windows across devices). Parameters are replicated.
+(inference: `pipeline.StreamingTranscriber(devices=...)` splits each step's
+windows into rows, one per device). Parameters are replicated.
 
 A "mesh" here is an explicit, ordered list of `torch.device`s: entry r holds
 shard r. A device may repeat (``["cuda:0", "cuda:0"]``, or ``["cpu"] * 8``),

@@ -262,17 +262,19 @@ def dryrun(n_devices: int, n_processes: int = 1, device: str = "cpu", timeout: f
     # one device at the shards' model batch (one window) runs every window
     # through the same kernels: the events must be equal, on any device
     single = pipeline.StreamingTranscriber(windows_per_chunk=1, device=devices[0], pcm_transport="codec")
-    (ev_sharded,) = sharded.transcribe_batch([(audio, sr)])
+    (ev_rows,) = sharded.transcribe_batch([(audio, sr)])
     (ev_single,) = single.transcribe_batch([(audio, sr)])
-    if ev_sharded != ev_single:
-        raise AssertionError(f"sharded inference diverged: {len(ev_sharded)} vs {len(ev_single)} events")
+    if ev_rows != ev_single:
+        raise AssertionError(f"sharded inference diverged: {len(ev_rows)} vs {len(ev_single)} events")
     # each shard received only its own windows: 1/N of the single device's
-    # raw bytes plus the overlap halo of each chunk (the codec only shrinks it)
+    # raw bytes plus the overlap halo of each chunk (the codec only shrinks
+    # it); rows of one window each, so a row past the needed windows gets none
     per_shard = sharded.piece_upload_bytes
     n_chunks = sharded._geometry(audio, sr)[2]
     total_single = n_chunks * sharded.chunk_len * audio.itemsize
     bound = total_single / n_devices + n_chunks * pipeline.OVERLAP * audio.itemsize
-    if len(per_shard) != n_devices or max(per_shard.values()) > bound:
+    rows = min(n_devices, pipeline._needed_windows(len(audio), False))
+    if len(per_shard) != rows or max(per_shard.values()) > bound:
         raise AssertionError(f"per-shard uploads {per_shard} exceed {bound:.0f} B (single device {total_single} B)")
     post = sharded.posteriorgrams(audio_f, sr)
     if not all(np.isfinite(v).all() for v in post.values()):
@@ -282,7 +284,7 @@ def dryrun(n_devices: int, n_processes: int = 1, device: str = "cpu", timeout: f
         "n_processes": n_processes,
         "loss_dense": results[0]["loss_dense"],
         "loss_sparse": results[0]["loss_sparse"],
-        "events": len(ev_sharded),
+        "events": len(ev_rows),
         "max_shard_upload_bytes": max(per_shard.values()),
         "single_upload_bytes": total_single,
     }

@@ -11,33 +11,27 @@ the windows the recording needs; per piece, on the device:
       -> anti-aliased decimation to 22.05 kHz when the input is 44.1 kHz
       -> unfold into its overlapping 43 844-sample windows
 
-On one device the windows of every recording of a call are laid out one
-after another, each recording at the offset where the one before it ends,
-and the NMP model (CQT -> harmonic stack -> conv heads) runs on them in
-shared W-window chunks: a (k*W, 43 844) batch whenever ``compute_group`` x W
-windows are in, and, once the call's last recording is in, the rest padded
-once to whole chunks. The model is window-local (batch norm in eval mode),
-so a window's outputs do not depend on its neighbours in the batch. The
-outputs are trimmed by 15 frames at each window's edge, get the per-frame
+The windows of every recording of a call are laid out one after another,
+each recording at the offset where the one before it ends, and the NMP
+model (CQT -> harmonic stack -> conv heads) runs on them in steps of
+``compute_group`` x W windows, the last step of the call padded once to
+whole W-window chunks. On a list of N devices (``devices=``, JAX's
+``mesh=``; one device is a list of one) row r of a step, its r-th slice of
+step/N windows, runs on devices[r]: a piece goes to the device of the row
+that owns its windows, so on several devices a recording's pieces are its
+W/N-window slices, cut again where the owning row changes. The model is
+window-local (batch norm in eval mode), so a window's outputs do not depend
+on its neighbours in the batch. The outputs are trimmed by 15 frames at
+each window's edge, gathered in row order on devices[0], get the per-frame
 bend matrix, and split back by window ranges into each recording's (n*142,
 F) outputs; then, once per recording, as soon as its last window has run,
 the greedy note decode (the CUDA kernel of `decode/greedy_kernel.py` on a
 GPU, its plain version on the CPU) and the per-note bend gather. Only the
 note count, then count-sized note buffers, cross back to the host, where
 each recording's events are assembled in one vectorised pass
-(`decode/device.notes_to_events`).
-
-Over a list of several devices (``devices=``, JAX's ``mesh=``; a list of
-one is one device), each recording runs
-on its own in whole W-window chunks, and each chunk is cut into one row per
-device: row r holds that shard's W/N windows plus the overlap halo (and, at
-44.1 kHz, the decimator's), uploads to devices[r] alone (through the codec
-there when it applies), and is decimated, unfolded, run through that
-device's copy of the model and trimmed there. The rows' outputs are
-concatenated in row order on devices[0], where the bend matrix and the
-decode run. A decode that
-overflows its buffers falls back to the host decoder (`decode/notes.py`) on
-the posteriorgrams, and `host_fallbacks` counts it.
+(`decode/device.notes_to_events`). A decode that overflows its buffers
+falls back to the host decoder (`decode/notes.py`) on the posteriorgrams,
+and `host_fallbacks` counts it.
 
 Numerics are float32 by default: the constructor sets
 ``torch.backends.cudnn.allow_tf32 = False`` (cuDNN's default is True) and
@@ -50,14 +44,14 @@ after it.
 While a profiler runs (`utils/profiling.py`), a call records
 ``bp.transcriber.batch``; per recording ``bp.transcriber.forward`` (with
 ``bp.transcriber.upload`` per piece, its decimation and unfold included,
-and ``bp.transcriber.model`` per model call: a call shared by several
-recordings belongs to the forward open when it runs), ``bp.decode.dispatch``,
+and ``bp.transcriber.model`` per step: a step shared by several recordings
+belongs to the forward open when it runs), ``bp.decode.dispatch``,
 ``bp.transcriber.fetch`` around each copy to the host and
 ``bp.transcriber.assemble``, under the recording's request id; and the
 counters ``transcriber.windows_needed`` / ``windows_run``, the windows the
-audio covers and those the model ran (whole W-window chunks), and, on one
-device, ``transcriber.chunks_shared``, the chunks run that held windows of
-more than one recording; per recording decoded on the device, the
+audio covers and those the model ran (whole W-window chunks), and
+``transcriber.chunks_shared``, the chunks run that held windows of more
+than one recording; per recording decoded on the device, the
 assembly's ``transcriber.notes_assembled``, ``bend_frames_assembled`` and
 ``long_note_columns`` (its events, their bend frames, and its notes longer
 than the inline bend buffer).
@@ -132,14 +126,12 @@ class StreamingTranscriber:
         windows_per_chunk: W, the windows of one upload.
         device: "cuda" (the default, which raises when there is no GPU) or
             "cpu".
-        devices: instead of ``device``, an ordered list of devices (JAX's
+        devices: instead of ``device``, an ordered list of N devices (JAX's
             ``mesh``; `parallel.mesh.make_mesh`), which may repeat one: each
-            chunk's W windows split into len(devices) rows of W/N windows,
-            row r uploaded to and run on devices[r], the outputs gathered and
-            decoded on devices[0]; each recording runs on its own, padded to
-            whole chunks (a list of one device shares chunks across
-            recordings, as one device does). W must divide by N;
-            ``compute_group`` is then 1. A CUDA device with no GPU raises.
+            step's windows split into N rows, row r uploaded to and run on
+            devices[r], the outputs gathered and decoded on devices[0]. W
+            must divide by N; with N > 1 ``compute_group`` is 1, so a row
+            holds W/N windows. A CUDA device with no GPU raises.
         precision: numerics of the front end (the decimator's and the CQT's
             matmuls) and, unless ``head_precision`` is given, of the heads:
             "highest" (float32, TF32 off; posteriorgrams within 1e-4 of the
@@ -149,10 +141,10 @@ class StreamingTranscriber:
             means "same as precision".
         conv_impl: the head convs' lowering, "conv" (cuDNN), "im2col",
             "toeplitz[:fb]" or "mxu[:fb]" (`nmp.resolve_conv_impl`).
-        compute_group: k, the W-window chunks of one model call: a (k*W,
+        compute_group: k, the W-window chunks of one step: a (k*W,
             43 844) batch of the call's windows, whichever recordings
             they come from (a last group of fewer chunks runs as it is).
-            Uploads keep W-window granularity.
+            Uploads keep W-window granularity. 1 on several devices.
         pcm_transport: how int16 recordings reach the device: "codec" (the
             lossless residual codec; raises at construction when its packer
             or, on a GPU, its kernel cannot be built), "raw" (one pinned copy
@@ -215,8 +207,8 @@ class StreamingTranscriber:
         self.precision = precision
         self.head_precision = head_precision
         self.conv_impl = conv_impl
-        # a sharded chunk already runs one model call per device
-        self.compute_group = 1 if devices is not None else max(1, int(compute_group))
+        # over several devices a step already runs one model call per device
+        self.compute_group = 1 if len(self.devices) > 1 else max(1, int(compute_group))
         self.pcm_transport = transport.check_mode(pcm_transport)
         self.transport_ttl_s = transport_ttl_s
         self.reprobe_after_calls = True
@@ -236,15 +228,8 @@ class StreamingTranscriber:
             model = params_io.model_from_flat(flat)
         self.model = model.to(self.device).eval()
         self.chunk_len = HOP * self.w + OVERLAP  # samples @22.05k per chunk
-        self.n_shards = len(self.devices)
-        # over several devices each recording runs on its own, in sharded rows
-        self._sharded = len(self.devices) > 1
-        # each shard receives only its own w/N windows plus the overlap halo:
-        # per-shard upload bytes are ~1/N of the single device's
-        self.w_local = self.w // self.n_shards
-        self.row_span = self.w_local * HOP + OVERLAP
         self._row_models = mesh_lib.replicate(self.devices, self.model)
-        self._row_keys = [f"{dev}/{r}" for r, dev in enumerate(self.devices)]
+        self._row_keys = ["default"] if len(self.devices) == 1 else [f"{dev}/{r}" for r, dev in enumerate(self.devices)]
         on_gpu = self.device.type == "cuda"
         self.decode_backend = "kernel" if on_gpu else "plain"
         self.host_fallbacks = 0
@@ -292,7 +277,7 @@ class StreamingTranscriber:
     def _row(audio: np.ndarray, is_44k: bool, first: int, n: int) -> np.ndarray:
         """Host samples of windows first .. first + n - 1 of a recording plus
         the overlap halo (a view where possible, zero-padded edges); a 44.1
-        kHz row carries the decimator's halo on both sides."""
+        kHz piece carries the decimator's halo on both sides."""
         lo = first * HOP - OVERLAP // 2
         span = n * HOP + OVERLAP
         if is_44k:
@@ -300,15 +285,8 @@ class StreamingTranscriber:
             return upload_ops.padded_slice(audio, lo, lo + 2 * span + 2 * _DEC_HALO)
         return upload_ops.padded_slice(audio, lo, lo + span)
 
-    def _pieces(self, audio: np.ndarray, is_44k: bool, n_chunks: int):
-        """Host-side whole chunks of a recording, each a list of rows: row r
-        covers shard r's w/N windows plus the overlap halo, so no device
-        receives the whole piece."""
-        for c in range(n_chunks):
-            yield [self._row(audio, is_44k, c * self.w + r * self.w_local, self.w_local) for r in range(self.n_shards)]
-
     def _codec_enabled(self, dtype: np.dtype, device: Optional[torch.device] = None) -> bool:
-        """Should this recording's int16 rows for ``device`` (devices[0] when
+        """Should this recording's int16 pieces for ``device`` (devices[0] when
         None) ride the codec? "codec" and "raw" are unconditional; "auto"
         follows the cached probe of that device and never starts a
         measurement (`refresh_transport` does)."""
@@ -330,46 +308,43 @@ class StreamingTranscriber:
         device: torch.device,
         key: str,
     ) -> torch.Tensor:
-        """One row on ``device`` as float32 samples, raw or through the codec,
+        """One piece on ``device`` as float32 samples, raw or through the codec,
         its bytes counted under ``key`` (`upload.PieceUploader.upload_piece`)."""
         return self._uploader.upload_piece(piece, packed, device, key)
 
-    def _windows(self, x: torch.Tensor, is_44k: bool, n: int, dev: torch.device) -> torch.Tensor:
-        """The (n, 43 844) windows of one uploaded row of n windows (`_row`),
-        decimated first when it is 44.1 kHz audio."""
+    def _windows(self, x: torch.Tensor, is_44k: bool, n: int, dev: torch.device, lead: int = 0) -> torch.Tensor:
+        """The (n, 43 844) windows of one uploaded piece of n windows (`_row`),
+        decimated first when it is 44.1 kHz audio. A piece that starts
+        ``lead`` windows into its slice of the recording is decimated on the
+        slice's block grid (zeros in front, their outputs dropped), so its
+        samples are those of the whole slice, bit for bit."""
         with nmp.precision_scope(self.precision, dev.type):
             if is_44k:
-                x = resample_ops.decimate2(x, halo=True, n_out=n * HOP + OVERLAP, matrix=self._dec2[dev])
+                matrix = self._dec2[dev]
+                d = lead * HOP % matrix.shape[1]
+                x = torch.nn.functional.pad(x, (2 * d, 0)) if d else x
+                x = resample_ops.decimate2(x, halo=True, n_out=n * HOP + OVERLAP + d, matrix=matrix)[d:]
             return unfold_windows(x.float(), n)
 
-    def _model_call(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One model call on a batch of whole W-window chunks (at most k of
-        them; (n, 43 844) windows on the device): the trimmed (n*142, F)
-        outputs and the bend matrix, which is
-        frame-local, so it is computed per W-window chunk and its (frames,
-        88, 51) gather stays bounded whatever ``compute_group`` is."""
+    def _model_call(self, *rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One model step: row r, (n_r, 43 844) windows on devices[r], runs
+        through that device's copy of the model (one device: the step's
+        whole batch of at most k W-window chunks). The trimmed outputs are
+        gathered in row order on devices[0] as (n*142, F) with the bend
+        matrix, which is frame-local, so it is computed per W-window chunk
+        and its (frames, 88, 51) gather stays bounded whatever
+        ``compute_group`` is."""
         with profiling.span("bp.transcriber.model"):
-            profiling.count("transcriber.windows_run", len(batch))
-            out = self.model(batch, self.precision, self.head_precision, self.conv_impl)
-            out = {k: v[:, TRIM : v.shape[1] - TRIM].reshape(-1, v.shape[2]) for k, v in out.items()}
+            profiling.count("transcriber.windows_run", sum(len(x) for x in rows))
+            outs = []
+            for x, model in zip(rows, self._row_models):
+                out = model(x, self.precision, self.head_precision, self.conv_impl)
+                outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(-1, v.shape[2]).to(self.device) for k, v in out.items()})
+            out = outs[0] if len(outs) == 1 else {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
             frames = self.w * FRAMES_PER_WINDOW
             bends = [device_decode.bend_matrix(out["contour"][t : t + frames]) for t in range(0, len(out["contour"]), frames)]
             out["bends"] = bends[0] if len(bends) == 1 else torch.cat(bends)
             return out
-
-    def _model_rows(self, rows: "list[torch.Tensor]", is_44k: bool) -> Dict[str, torch.Tensor]:
-        """One model call per device on its row of one chunk (row r already
-        lies on devices[r]; a (W/N, 43 844) batch each); the trimmed outputs
-        are concatenated in row order on devices[0], with the chunk's bend
-        matrix."""
-        with profiling.span("bp.transcriber.model"):
-            outs = []
-            for x, dev, model in zip(rows, self.devices, self._row_models):
-                out = model(self._windows(x, is_44k, self.w_local, dev), self.precision, self.head_precision, self.conv_impl)
-                outs.append({k: v[:, TRIM : v.shape[1] - TRIM].reshape(-1, v.shape[2]).to(self.device) for k, v in out.items()})
-            chunk = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-            chunk["bends"] = device_decode.bend_matrix(chunk["contour"])
-            return chunk
 
     @torch.inference_mode()
     def _forward_many(self, recordings: "Sequence[Tuple[np.ndarray, int]]", requests: "Sequence[Optional[int]]"):
@@ -377,23 +352,22 @@ class StreamingTranscriber:
         (index, outputs, n_frames, n_chunks) per recording as soon as its
         last window has run, the outputs a dict on devices[0] of "note",
         "onset", "contour" and int8 "bends", n*142 rows for n needed
-        windows (n_chunks*W*142 over a device list). ``requests`` are the
-        recordings' request ids in the spans (`utils/profiling.py`)."""
-        if self._sharded:
-            for i, ((audio, sample_rate), request) in enumerate(zip(recordings, requests)):
-                yield (i, *self._forward_rows(audio, sample_rate, request))
-            return
-        w, group = self.w, self.compute_group * self.w
-        batch = None  # the next model call's windows, filled in the call's window order
-        fill = run = end = 0  # windows in ``batch``; windows run; windows uploaded
+        windows. ``requests`` are the recordings' request ids in the spans
+        (`utils/profiling.py`)."""
+        w, group, n_rows = self.w, self.compute_group * self.w, len(self.devices)
+        span, grid = group // n_rows, w // n_rows  # windows of one row of a step; of one slice of a recording
+        rows: List[torch.Tensor] = []  # each row's windows of the next step, on its device, filled in the call's order
+        fill = run = end = 0  # windows in the step; windows run; windows uploaded
         starts: List[int] = []  # each recording's first window in the call's order
         calls: List[Tuple[int, int, Dict[str, torch.Tensor]]] = []  # (first window, windows, outputs)
         todo: List[Tuple[int, int, int, int]] = []  # (index, end window, n_frames, n_chunks) not yielded yet
 
-        def run_batch(size: int) -> None:
+        def run_step(size: int) -> None:
             nonlocal fill, run
-            batch[fill:size] = 0  # padding, at the end of the call only
-            calls.append((run, fill, self._model_call(batch[:size])))
+            m = size // n_rows  # windows each row runs
+            for r, row in enumerate(rows):
+                row[min(max(fill - r * span, 0), m) : m] = 0  # padding, at the end of the call only
+            calls.append((run, fill, self._model_call(*(row[:m] for row in rows))))
             run, fill = run + fill, 0
 
         for i, ((audio, sample_rate), request) in enumerate(zip(recordings, requests)):
@@ -401,32 +375,39 @@ class StreamingTranscriber:
                 audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
                 n = _needed_windows(len(audio), is_44k)
                 profiling.count("transcriber.windows_needed", n)
+                # pieces: the recording's W/N-window slices (its W-window
+                # pieces on one device), cut again where the owning row changes
+                cuts = range(0, n, grid) if n_rows == 1 else sorted({*range(0, n, grid), *range(-end % span, n, span)})
+                pieces = list(zip(cuts, [*cuts[1:], n]))
+                owners = [(end + lo) % group // span for lo, _ in pieces]
                 starts.append(end)
                 end += n
                 todo.append((i, end, n_frames, n_chunks))
-                sizes = [min(w, n - c * w) for c in range(n_chunks)]
-                rows = [self._row(audio, is_44k, c * w, m) for c, m in enumerate(sizes)]
+                host = [self._row(audio, is_44k, lo, hi - lo) for lo, hi in pieces]
+                codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
                 # pack on worker threads: piece c+1 packs while piece c uploads
-                pool = self._uploader.packer_threads() if self._codec_enabled(audio.dtype) else None
-                packed = [None if pool is None else pool.submit(upload_ops.pack_wire, row) for row in rows]
-                for row, future, m in zip(rows, packed, sizes):
+                pool = self._uploader.packer_threads() if any(codec) else None
+                packed = [pool.submit(upload_ops.pack_wire, x) if codec[r] else None for x, r in zip(host, owners)]
+                for (lo, hi), piece, future, owner in zip(pieces, host, packed, owners):
+                    dev = self.devices[owner]
                     with profiling.span("bp.transcriber.upload"):
-                        x = self._upload_piece(row, None if future is None else future.result(), self.device, "default")
-                        windows = self._windows(x, is_44k, m, self.device)
-                    if batch is None:
-                        batch = windows.new_empty((group, WINDOW))
+                        x = self._upload_piece(piece, None if future is None else future.result(), dev, self._row_keys[owner])
+                        windows = self._windows(x, is_44k, hi - lo, dev, lo % grid)
+                    if not rows:
+                        rows = [windows.new_empty((span, WINDOW), device=d) for d in self.devices]
                     while len(windows):
-                        take = min(len(windows), group - fill)
-                        batch[fill : fill + take] = windows[:take]
+                        r, at = divmod(fill, span)
+                        take = min(len(windows), span - at)
+                        rows[r][at : at + take] = windows[:take]
                         fill, windows = fill + take, windows[take:]
                         if fill == group:
-                            run_batch(group)
+                            run_step(group)
                 if i == len(recordings) - 1:
                     if fill:
-                        run_batch(-(-fill // w) * w)
+                        run_step(-(-fill // w) * w)
                     shared = sum(any(c < s < c + w for s in starts) for c in range(0, end, w))
                     profiling.count("transcriber.chunks_shared", shared)
-            # each recording whose windows have all run, its rows cut from the calls that hold them
+            # each recording whose windows have all run, its outputs cut from the steps that hold them
             while todo and todo[0][1] <= run:
                 j, hi, n_frames, n_chunks = todo.pop(0)
                 lo = starts[j]
@@ -438,30 +419,6 @@ class StreamingTranscriber:
                 calls = [c for c in calls if c[0] + c[1] > hi]
                 out = parts[0] if len(parts) == 1 else {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
                 yield j, out, n_frames, n_chunks
-
-    def _forward_rows(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
-        """One recording over the device list: upload every piece's rows,
-        each to its own device, and run the model on each chunk. Returns
-        (dict on devices[0] of (n_chunks*W*142, F) "note", "onset",
-        "contour" and int8 "bends", n_frames, n_chunks)."""
-        with profiling.span("bp.transcriber.forward", request=request):
-            audio, is_44k, n_chunks, n_frames = self._geometry(audio, sample_rate)
-            profiling.count("transcriber.windows_needed", _needed_windows(len(audio), is_44k))
-            profiling.count("transcriber.windows_run", n_chunks * self.w)
-            pieces = list(self._pieces(audio, is_44k, n_chunks))
-            codec = [self._codec_enabled(audio.dtype, dev) for dev in self.devices]
-            # pack on worker threads: piece c+1 packs while piece c uploads
-            pool = self._uploader.packer_threads() if any(codec) else None
-            packed = [[pool.submit(upload_ops.pack_wire, row) if use else None for row, use in zip(rows, codec)] for rows in pieces]
-            chunks = []
-            for rows, futures in zip(pieces, packed):
-                with profiling.span("bp.transcriber.upload"):
-                    uploaded = [
-                        self._upload_piece(row, None if future is None else future.result(), dev, key)
-                        for row, future, dev, key in zip(rows, futures, self.devices, self._row_keys)
-                    ]
-                chunks.append(self._model_rows(uploaded, is_44k))
-            return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}, n_frames, n_chunks
 
     def _forward(self, audio: np.ndarray, sample_rate: int, request: Optional[int] = None):
         """One recording's (outputs, n_frames, n_chunks), as `_forward_many`
@@ -682,8 +639,8 @@ class StreamingTranscriber:
         return_model_outputs: bool = False,
     ) -> list:
         """Transcribe many (audio, sample_rate) recordings; every recording is
-        enqueued before the first result is fetched, and on one device their
-        windows share model chunks (see the module's doc). With
+        enqueued before the first result is fetched, and their windows share
+        model steps (see the module's doc). With
         ``return_model_outputs`` each result is (events, {"note", "onset",
         "contour"})."""
         options = DecodeOptions(

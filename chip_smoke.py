@@ -120,8 +120,11 @@ Phases, each fatal on failure:
      posteriorgrams within 1e-3 (the card read 2.81e-4) and events by the
      one-flip rule (the amplitude difference printed); one greedy_decode launch per recording
      (counted as "parallel"), each shard's upload bytes at most the
-     recording's whole chunks' / 2 plus the halo of each chunk, and forced codec launching
-     pcm_decode once per shard row per chunk ("parallel_codec"); the wall
+     recording's whole chunks' / 2 plus the halo of each chunk, no bytes
+     from a row that owns none of the needed windows, and forced codec
+     on that recording and phase 3's 60 s 22.05 kHz int16 mix launching
+     pcm_decode once per uploaded piece that packs smaller, at least once
+     ("parallel_codec"), with the raw run's events; the wall
      of the sharded run against the single device's. Then data-parallel
      training: two `parallel.selfcheck` processes with gloo, both on cuda:0
      (NCCL refuses two ranks on one GPU), against one process on the same
@@ -1955,10 +1958,11 @@ def sharded_phase(smi: str, tr: Any, poly_audio: np.ndarray, pcm44: np.ndarray) 
     if max(same.values()) != 0.0 or max(diffs.values()) > 1e-3:
         raise AssertionError(f"sharded posteriorgrams differ: {same} at 64 windows, {diffs} at 128")
 
-    # each shard uploads its own rows: at most the raw bytes of the
-    # recording's whole 128-window chunks (as the shards run them; one device
-    # packs the windows of a call and uploads fewer) / N plus the halo of
-    # each chunk (twice the overlap and the decimator's halos at 44.1 kHz)
+    # each shard uploads the pieces of its own rows, only needed windows: at
+    # most the raw bytes of the recording's whole 128-window chunks / N plus
+    # the halo of each chunk (twice the overlap and the decimator's halos at
+    # 44.1 kHz); a row that owns none of the needed windows uploads nothing
+    # (the 37 windows of 60 s all lie in row 0 of the one step)
     sharded.piece_upload_bytes.clear()
     sharded.transcribe(pcm44, 2 * SR)
     per_shard = dict(sharded.piece_upload_bytes)
@@ -1967,27 +1971,42 @@ def sharded_phase(smi: str, tr: Any, poly_audio: np.ndarray, pcm44: np.ndarray) 
     bound = total_whole / len(devices) + n_chunks * 2 * (pipeline.OVERLAP + pipeline._DEC_HALO) * pcm44.itemsize
     print(f"upload bytes per shard [60 s at 44.1 kHz int16]: {json.dumps(per_shard)}; whole chunks {total_whole} B; "
           f"bound {bound:.0f} B (1/{len(devices)} + the halo of {n_chunks} chunk(s))")
-    keys = [f"{pipeline.resolve_device(d)}/{r}" for r, d in enumerate(devices)]
+    needed = pipeline._needed_windows(len(pcm44), True)
+    rows_used = -(-min(needed, 128) // (128 // len(devices)))
+    keys = [f"{pipeline.resolve_device(d)}/{r}" for r, d in enumerate(devices)][:rows_used]
     if sorted(per_shard) != keys or max(per_shard.values()) > bound:
-        raise AssertionError(f"per-shard uploads {per_shard} break the bound {bound:.0f} B")
+        raise AssertionError(f"per-shard uploads {per_shard} break the bound {bound:.0f} B (rows {keys})")
 
-    # forced codec: one pcm_decode launch per shard row per chunk
+    # forced codec: one pcm_decode launch per uploaded piece that packs
+    # smaller than raw (the JAX rule), read from the pieces the calls
+    # upload. The 44.1 kHz recording's one piece (37 windows, no zero tail)
+    # does not; the 60 s 22.05 kHz int16 mix of phase 3's transport sweep
+    # does, so the device list's codec path launches the kernel there
+    pcm22 = np.round(tone_mix(SR, 60.0, seed=102)[0] * 32767).astype(np.int16)
+    codec_inputs = [(pcm44, 2 * SR), (pcm22, SR)]
+    raw_events = [events[1], sharded.transcribe(pcm22, SR)]
     sharded_codec = pipeline.StreamingTranscriber(devices=devices, windows_per_chunk=128, pcm_transport="codec")
-    sharded_codec.transcribe(pcm44, 2 * SR)
+    for y, rate in codec_inputs:
+        sharded_codec.transcribe(y, rate)
+    host_pieces = []
+    real_upload = sharded_codec._upload_piece
+
+    def spy(piece, packed, device, key):
+        host_pieces.append(piece)
+        return real_upload(piece, packed, device, key)
+
+    sharded_codec._upload_piece = spy
     torch.cuda.synchronize()
     greedy_kernel.launches = pcmcodec.launches = 0
-    codec_events = sharded_codec.transcribe(pcm44, 2 * SR)
+    codec_events = [sharded_codec.transcribe(y, rate) for y, rate in codec_inputs]
     codec_launches = {"greedy_decode": greedy_kernel.launches, "pcm_decode": pcmcodec.launches}
-    rows = n_chunks * len(devices)
-    # the JAX rule: a row goes packed when that is smaller than the row; this
-    # recording's rows all are, so every row must launch the kernel
-    host_rows = [r for piece in sharded_codec._pieces(pcm44, True, n_chunks) for r in piece]
-    packed_rows = sum(pcmcodec.pack(r).packed_bytes < r.nbytes for r in host_rows)
-    print(f"sharded codec run [60 s at 44.1 kHz int16]: launches {json.dumps(codec_launches)} for {rows} shard rows "
-          f"({packed_rows} pack smaller than raw); upload bytes {json.dumps(sharded_codec.piece_upload_bytes)}")
-    if codec_launches != {"greedy_decode": 1, "pcm_decode": packed_rows} or packed_rows != rows:
-        raise AssertionError(f"the codec run launched {codec_launches}, expected one greedy_decode and {rows} pcm_decode")
-    if codec_events != events[1]:
+    packed_rows = sum(pcmcodec.pack(p).packed_bytes < p.nbytes for p in host_pieces)
+    print(f"sharded codec run [60 s at 44.1 kHz and 22.05 kHz int16]: launches {json.dumps(codec_launches)} for "
+          f"{len(host_pieces)} uploaded piece(s) ({packed_rows} pack smaller than raw)")
+    if codec_launches != {"greedy_decode": len(codec_inputs), "pcm_decode": packed_rows} or not packed_rows:
+        raise AssertionError(f"the codec run launched {codec_launches}, expected {len(codec_inputs)} greedy_decode "
+                             f"and {packed_rows} (> 0) pcm_decode")
+    if codec_events != raw_events:
         raise AssertionError("the lossless codec changed the sharded events")
 
     walls = {"single": [], "sharded": []}

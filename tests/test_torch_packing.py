@@ -1,18 +1,19 @@
-"""PyTorch port, window packing: on one device the recordings of one
-`transcribe_batch` call share W-window model chunks.
+"""PyTorch port, window packing: the recordings of one `transcribe_batch`
+call share W-window model chunks, on one device and over a device list.
 
 On the CPU at W = 4: a call of four recordings (2, 4 = W, 6 and 5 needed
 windows; 22.05 kHz float32 and 44.1 kHz int16; the last holds a note longer
 than `BEND_INLINE_FRAMES`) gives, for each recording, the events and the
 posteriorgrams of its own `transcribe` and `posteriorgrams` calls, and of
-the device-list path over two devices, which runs each recording on its
-own in whole chunks (the transcriber before packing), bit for bit. The model
-is window-local, so a window's outputs do not depend on its neighbours in
-the batch. Then the counters: ``transcriber.windows_run`` is the call's
-needed windows rounded up to whole chunks, and one recording runs as many
-as before; ``transcriber.chunks_shared`` counts the chunks that hold
-windows of more than one recording. A device list of one packs as one
-device does.
+its own call over two devices at rows of W windows, bit for bit; so does
+the same call over two devices, whose steps of two rows hold windows of
+several recordings. The model is window-local, so a window's outputs do
+not depend on its neighbours in the batch. Then the counters:
+``transcriber.windows_run`` is the call's needed windows rounded up to
+whole chunks, and one recording runs as many as before;
+``transcriber.chunks_shared`` counts the chunks that hold windows of more
+than one recording. A device list of one packs as one device does, and so
+does a list of two.
 """
 
 import numpy as np
@@ -53,8 +54,8 @@ def recordings():
 
 @pytest.fixture(scope="module")
 def own(recordings):
-    """Each recording's own calls, on one device and on the device-list path
-    over two devices (rows of W windows, the batch of a one-device call)."""
+    """Each recording's own calls, on one device and over two devices (rows
+    of W windows, the batch of a one-device call)."""
     tr = t_pipeline.StreamingTranscriber(windows_per_chunk=W, device="cpu", pcm_transport="raw")
     whole = t_pipeline.StreamingTranscriber(windows_per_chunk=2 * W, devices=["cpu"] * 2, pcm_transport="raw")
     out = []
@@ -69,13 +70,18 @@ def own(recordings):
 
 
 @pytest.mark.parametrize("return_model_outputs", [False, True], ids=["events", "outputs"])
-@pytest.mark.parametrize("compute_group", [1, 2])
-def test_packed_batch_equals_each_recording_alone(recordings, own, compute_group, return_model_outputs):
+@pytest.mark.parametrize(
+    "compute_group,devices", [(1, None), (2, None), (1, ["cpu"] * 2)], ids=["1", "2", "two-devices"])
+def test_packed_batch_equals_each_recording_alone(recordings, own, compute_group, devices, return_model_outputs):
     """17 windows in chunks of 4: at k = 1 the 6- and 5-window recordings
     span two and three model calls; at k = 2 they span two (8 + 8, then 1
-    padded to a chunk at the flush)."""
+    padded to a chunk at the flush). Over two devices at W = 8 a step is two
+    rows of 4 on the grid of the one device's chunks (8 + 8, then 1 in
+    row 0 and zeros in row 1); the 44.1 kHz recordings start at windows 2
+    and 12, so the first one's pieces start inside its 4-window slices."""
     tr = t_pipeline.StreamingTranscriber(
-        windows_per_chunk=W, device="cpu", pcm_transport="raw", compute_group=compute_group)
+        windows_per_chunk=W if devices is None else 2 * W, device=None if devices else "cpu", devices=devices,
+        pcm_transport="raw", compute_group=compute_group)
     got = tr.transcribe_batch(recordings, return_model_outputs=return_model_outputs)
     assert len(got) == len(recordings)
     for result, ref in zip(got, own):
@@ -102,6 +108,7 @@ def _shared_chunks(needed, w):
         ((4.0,), 2, None),  # one recording: 3 windows run as 2 chunks, as before packing
         ((1.0,), 1, None),
         ((1.0, 2.5, 4.0), 1, ["cpu"]),  # a device list of one packs too
+        ((1.0, 2.5, 4.0), 2, ["cpu"] * 2),  # and so does a list of two, in steps of one W-window chunk
     ],
 )
 def test_packed_counters(seconds, compute_group, devices):

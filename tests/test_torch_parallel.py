@@ -10,7 +10,10 @@ be equal (amplitudes within 1e-4, the JAX dry run's bound) or agree by the
 one-flip rule; posteriorgrams within 5e-3 of JAX's (the bound of
 `tests/test_inference.py:147`) and within 1e-4 of the port's single
 device's. Each shard uploads at most 1/N of the single device's raw bytes plus
-the halo of each chunk.
+the halo of each chunk, and a row that owns none of a recording's needed
+windows uploads nothing. A device list packs a call's windows into shared
+steps as one device does, and gives one device's events and posteriorgrams
+at the shard batch bit for bit.
 """
 
 import jax
@@ -114,7 +117,8 @@ def test_per_shard_upload_within_one_over_n_plus_halo(case, transcribers):
     halo = t_pipeline.OVERLAP if sr == SR else 2 * (t_pipeline.OVERLAP + t_pipeline._DEC_HALO)
     bound = total_single / N + n_chunks * halo * audio.itemsize
     assert max(per_shard.values()) <= bound, (per_shard, bound)
-    raw_row = n_chunks * (sharded.row_span if sr == SR else 2 * sharded.row_span + 2 * t_pipeline._DEC_HALO) * audio.itemsize
+    row_span = (W // N) * t_pipeline.HOP + t_pipeline.OVERLAP  # one row's windows plus the overlap halo
+    raw_row = n_chunks * (row_span if sr == SR else 2 * row_span + 2 * t_pipeline._DEC_HALO) * audio.itemsize
     assert max(per_shard.values()) <= raw_row
     if transport == "codec":
         assert min(per_shard.values()) < raw_row
@@ -139,16 +143,45 @@ def test_sharded_equals_single_device_at_the_shard_batch(rate):
 
 
 def test_device_list_events_equal_one_device_in_a_multi_recording_call():
-    """A call of three recordings (22.05 and 44.1 kHz): the device list runs
-    each on its own in whole chunks of two rows, the one device packs the
-    call's windows into shared chunks; the same windows through the same
-    kernels give the same events, bit for bit."""
+    """A call of three recordings (22.05 and 44.1 kHz): both the device list
+    (steps of two rows of two windows) and the one device at the shard
+    batch pack the call's windows into shared steps. The 44.1 kHz recording
+    starts at window 3, inside a row, so its pieces there start inside its
+    two-window slices and are decimated on the slices' grid; the same
+    windows through the same kernels give the same events and
+    posteriorgrams, bit for bit."""
     recordings = [
         (tone_mix(SR, 4.0, seed=1), SR), (to_pcm16(np.repeat(tone_mix(SR, 3.0, seed=2), 2)), 2 * SR), (tone_mix(SR, 7.0, seed=3), SR)]
     sharded = t_pipeline.StreamingTranscriber(windows_per_chunk=4, devices=["cpu"] * 2, pcm_transport="raw")
     single = t_pipeline.StreamingTranscriber(windows_per_chunk=2, device="cpu", pcm_transport="raw")
-    got = sharded.transcribe_batch(recordings)
-    assert all(got) and got == single.transcribe_batch(recordings)
+    got = sharded.transcribe_batch(recordings, return_model_outputs=True)
+    ref = single.transcribe_batch(recordings, return_model_outputs=True)
+    assert all(events for events, _ in got) and [e for e, _ in got] == [e for e, _ in ref]
+    for (_, post), (_, post_ref) in zip(got, ref):
+        for key in post_ref:
+            np.testing.assert_array_equal(post[key], post_ref[key], err_msg=key)
+
+
+@pytest.mark.parametrize("rate", [SR, 2 * SR])
+def test_short_recording_uploads_only_the_rows_it_needs(rate):
+    """Three needed windows over four rows of two: rows 0 and 1 upload their
+    windows plus the halo, rows 2 and 3 nothing (no zero tails); the model
+    still runs every row at the shard batch, and the events and
+    posteriorgrams are one device's at that batch, bit for bit."""
+    y = tone_mix(SR, 4.0, seed=6)
+    audio = y if rate == SR else to_pcm16(np.repeat(y, 2))
+    assert t_pipeline._needed_windows(len(audio), rate != SR) == 3
+    sharded = t_pipeline.StreamingTranscriber(windows_per_chunk=8, devices=["cpu"] * 4, pcm_transport="raw")
+    single = t_pipeline.StreamingTranscriber(windows_per_chunk=2, device="cpu", pcm_transport="raw")
+    (got,) = sharded.transcribe_batch([(audio, rate)], return_model_outputs=True)
+    (ref,) = single.transcribe_batch([(audio, rate)], return_model_outputs=True)
+    halo = 0 if rate == SR else 2 * t_pipeline._DEC_HALO
+    scale = 1 if rate == SR else 2
+    assert sharded.piece_upload_bytes == {
+        f"cpu/{r}": (scale * (m * t_pipeline.HOP + t_pipeline.OVERLAP) + halo) * audio.itemsize for r, m in ((0, 2), (1, 1))}
+    assert got[0] and got[0] == ref[0]
+    for key in ref[1]:
+        np.testing.assert_array_equal(got[1][key], ref[1][key], err_msg=key)
 
 
 def test_windows_must_divide_across_devices():
@@ -160,7 +193,8 @@ def test_compute_group_is_forced_to_one(transcribers):
     sharded, single = transcribers["raw"]
     assert sharded.compute_group == 1 and single.compute_group == 2
     assert t_pipeline.StreamingTranscriber(windows_per_chunk=4, devices=["cpu"] * 2, compute_group=4).compute_group == 1
-    assert (sharded.w_local, sharded.row_span) == (W // N, (W // N) * t_pipeline.HOP + t_pipeline.OVERLAP)
+    # a list of one is one device: it keeps k
+    assert t_pipeline.StreamingTranscriber(windows_per_chunk=4, devices=["cpu"]).compute_group == 2
 
 
 def test_device_and_devices_are_exclusive():
